@@ -8,12 +8,18 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
 Phases, in order; any failure exits non-zero and prints no result line:
 
   1. device:  require CUDA; print the card's name and power limit.
-  2. build:   compile every CUDA source of molkgnn_torch/csrc with nvcc.
+  2. build:   compile every CUDA source of molkgnn_torch/csrc with nvcc;
+              print the scorer's registers, shared memory, spills and
+              resident blocks per SM for each of its tile shapes.
   3. kernels: hold the support-score kernel against its plain PyTorch
               version at the flagship serving shapes (buckets of 8192
-              synthetic molecules at batch 1024) and at the shapes of
+              synthetic molecules at batch 1024: all degrees in one grouped
+              launch, and each degree alone) and at the shapes of
               tests/test_pallas.py; time kernel, plain version, a library
-              yardstick, and the card's bound for the same work.
+              yardstick, and the card's bound for the same work. Kernel
+              times are CUDA events around back-to-back wrapper calls (host
+              cost included) beside the kernel's own device time from
+              torch.profiler.
   4. serve:   the main path. Serve 8192 synthetic molecules at batch 1024
               through Predictor.predict_graphs with the flagship
               GNNModel(MolKGNNNet(use_kernel=True)) (4 layers, 10/20/30/50
@@ -46,6 +52,9 @@ REPLACES = {
     "grouped_support_score": "molkgnn_tpu/ops/pallas_kernels.py:223",
 }
 KERNEL_SOURCE = "molkgnn_torch/csrc/support_score.cu"
+# Substring of both __global__ functions of the scorer's launch (the B
+# packing and the scorer), as the profiler names them.
+KERNEL_NAME = "support_score"
 FLAGSHIP_KERNELS = (10, 20, 30, 50)
 NUM_MOLECULES = 8192
 BATCH = 1024
@@ -79,6 +88,38 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps: int = 20):
+    """Device time of the scorer kernel per call of ``fn``, from
+    torch.profiler over ``reps`` calls; None where the profiler records no
+    device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    ) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(
+        evt.self_device_time_total for evt in prof.key_averages()
+        if evt.device_type == DeviceType.CUDA and KERNEL_NAME in evt.key
+    )
+    return total_us / 1e3 / reps if total_us > 0 else None
+
+
+def total(times):
+    """Sum of times, or None where any of them was not measured."""
+    times = list(times)
+    return None if None in times else sum(times)
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def bound_ms(shapes):
@@ -140,7 +181,8 @@ class Smoke:
         return worst
 
     def time_launch(self, kernel_fn, a_list, b_list):
-        """(kernel, plain, library) ms for one launch over these groups."""
+        """(kernel, plain, library, kernel device) ms for one launch over
+        these groups."""
         from molkgnn_torch.ops.support_score import support_score_plain
 
         torch = self.torch
@@ -159,7 +201,15 @@ class Smoke:
             time_ms(torch, kernel_fn),
             time_ms(torch, plain),
             time_ms(torch, library),
+            device_ms(torch, kernel_fn),
         )
+
+    def log_times(self, what, t, shapes):
+        b_ms, by = bound_ms(shapes)
+        log(f"  {what}: kernel {t[0]:.4f} ms (device {fmt_ms(t[3])}), plain "
+            f"{t[1]:.4f} ms, library {t[2]:.4f} ms, bound {b_ms:.4f} ms "
+            f"({by}); kernel/library {t[0] / t[2]:.3f}, share of bound "
+            f"{b_ms / t[0]:.3f}")
 
     def phase_kernels(self, spec):
         from molkgnn_torch.ops import support_score as ss
@@ -175,7 +225,8 @@ class Smoke:
             "N-hop layer": [(caps[d - 1], d, nhop_f, FLAGSHIP_KERNELS[d - 1])
                             for d in range(1, 5)],
         }
-        # (kernel, layer) -> ((kernel, plain, library) ms, shapes, max err)
+        # (kernel, layer) -> ((kernel, plain, library, device) ms, shapes,
+        # max err)
         self.per_request = {}
         for layer, dims in layer_shapes.items():
             ops = [self.operands(m, d, f, l, gen) for m, d, f, l in dims]
@@ -192,29 +243,28 @@ class Smoke:
             self.per_request[("grouped_support_score", layer)] = (
                 ms, shapes, err
             )
-            # The per-degree KernelConv path launches the fused scorer once
-            # per degree bucket at the layer-0 shapes.
-            if layer == "layer 0":
-                errs = []
-                for a, b, shape in zip(a_list, b_list, shapes):
-                    out = ss.fused_support_score(a, b)
-                    errs.append(self.check_against_plain(
-                        f"fused {shape}", [out], [a], [b]
-                    ))
-                fused_ms = [
-                    self.time_launch(
-                        lambda a=a, b=b: ss.fused_support_score(a, b), [a], [b]
-                    )
-                    for a, b in zip(a_list, b_list)
-                ]
-                self.per_request[("fused_support_score", layer)] = (
-                    tuple(sum(t[i] for t in fused_ms) for i in range(3)),
-                    shapes, max(errs),
+            self.log_times(f"grouped {layer}", ms, shapes)
+            # Each degree alone, through the fused entry point (G = 1). The
+            # per-degree KernelConv path launches it once per degree at the
+            # layer-0 shapes.
+            per_degree = []
+            for d, (a, b, shape) in enumerate(zip(a_list, b_list, shapes), 1):
+                err = self.check_against_plain(
+                    f"fused {layer} degree {d} {shape}",
+                    [ss.fused_support_score(a, b)], [a], [b],
                 )
-            b_ms, by = bound_ms(shapes)
-            log(f"  grouped {layer}: kernel {ms[0]:.4f} ms, plain "
-                f"{ms[1]:.4f} ms, library {ms[2]:.4f} ms, bound "
-                f"{b_ms:.4f} ms ({by})")
+                t = self.time_launch(
+                    lambda a=a, b=b: ss.fused_support_score(a, b), [a], [b]
+                )
+                self.log_times(f"{layer} degree {d} alone", t, [shape])
+                per_degree.append((t, err))
+            if layer == "layer 0":
+                self.per_request[("fused_support_score", layer)] = (
+                    tuple(
+                        total(t[i] for t, _ in per_degree) for i in range(4)
+                    ),
+                    shapes, max(e for _, e in per_degree),
+                )
 
         # The shapes of tests/test_pallas.py. Operands are unit vectors
         # along k, so every score is a cosine in [-1, 1], as on the model's
@@ -232,10 +282,7 @@ class Smoke:
             t = self.time_launch(
                 lambda: ss.fused_support_score(a, b), [a], [b]
             )
-            b_ms, by = bound_ms([(m, k, l, p)])
-            log(f"  fused {(m, k, l, p)}: kernel {t[0]:.4f} ms, plain "
-                f"{t[1]:.4f} ms, library {t[2]:.4f} ms, bound {b_ms:.4f} ms "
-                f"({by})")
+            self.log_times(f"fused {(m, k, l, p)}", t, [(m, k, l, p)])
         ones_a = torch.ones(4, 8, device="cuda")
         ones_b = torch.ones(5, 8, 3, device="cuda")
         for _, idx in [ss.fused_support_score(ones_a, ones_b),
@@ -408,6 +455,9 @@ class Smoke:
             log(f"  profile use_kernel={use_kernel}: device busy "
                 f"{busy:.3f} ms of {wall_ms:.3f} ms wall "
                 f"(idle share {1 - busy / wall_ms:.3f}, profiler on)")
+            scorer = sum(r[0] for r in rows if KERNEL_NAME in r[2])
+            log(f"    scorer kernel {scorer:.3f} ms of {busy:.3f} ms busy "
+                f"(share {scorer / busy:.3f})")
             for ms, count, key in sorted(rows, reverse=True)[:10]:
                 log(f"    {ms:9.3f} ms  x{count:<5d} {key[:90]}")
 
@@ -430,7 +480,7 @@ class Smoke:
             if name == "grouped_support_score":
                 (l0, s0, e0) = self.per_request[(name, "layer 0")]
                 (ln, sn, en) = self.per_request[(name, "N-hop layer")]
-                ms = [l0[i] + 3 * ln[i] for i in range(3)]
+                ms = [total([l0[i], ln[i], ln[i], ln[i]]) for i in range(4)]
                 shapes = s0 + sn * 3
                 err = max(e0, en)
             else:
@@ -449,6 +499,7 @@ class Smoke:
                 "bound_ms": b_ms,
                 "bound_by": by,
                 "library_ms": ms[2],
+                "device_ms": ms[3],
                 "path": paths[name],
             })
         return {"kernels": entries}
@@ -487,10 +538,12 @@ def main() -> int:
         log("[2] build")
         secs = _build.build_all()
         log(f"  built in {secs:.2f} s")
-        for stem, text in _build.build_log.items():
-            for line in text.splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"  {stem}: {line.strip()}")
+        from molkgnn_torch.ops.support_score import kernel_facts
+
+        for facts in kernel_facts():
+            log("  support_score tile " + ", ".join(
+                f"{k} {v}" for k, v in facts.items()
+            ))
 
         phase = "kernels"
         log("[3] kernels against their plain versions")

@@ -29,7 +29,6 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
-build_log: dict[str, str] = {}  # source stem -> nvcc output (ptxas report)
 
 
 def _nvcc() -> str:
@@ -67,7 +66,6 @@ def build_all() -> float:
     failed = []
     for src, out, tmp, proc in jobs:
         log, _ = proc.communicate()
-        build_log[src.stem] = log
         if proc.returncode != 0:
             failed.append(f"{src.name} (exit {proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)

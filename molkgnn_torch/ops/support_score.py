@@ -8,7 +8,8 @@ neighborhoods ``a`` [M, K] (K = d*F) and permuted supports ``b`` [P, K, L]:
 
 ``fused_support_score`` scores one bucket, ``grouped_support_score`` all
 buckets of a layer in one launch. Both launch the same kernel,
-``csrc/support_score.cu``. A wrapper takes the plain PyTorch version
+``csrc/support_score.cu`` (after a small kernel in the same call that packs
+B into scratch for it). A wrapper takes the plain PyTorch version
 (``support_score_plain``) only when its tensors lie on the CPU; for CUDA
 tensors it launches the kernel or raises. Each wrapper counts its kernel
 launches in its ``launches`` attribute.
@@ -18,7 +19,9 @@ Forward only: the scores are not differentiable through the kernel.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 from typing import Sequence
 
 import torch
@@ -71,57 +74,133 @@ def _kernel_lib() -> ctypes.CDLL:
 
     lib = library("support_score")
     if lib.molkgnn_support_score.argtypes is None:
-        ptrs = ctypes.POINTER(ctypes.c_uint64)
-        ints = ctypes.POINTER(ctypes.c_int)
         lib.molkgnn_support_score.argtypes = [
-            ctypes.c_int, ptrs, ptrs, ptrs, ptrs, ints, ints, ints, ints,
-            ctypes.c_void_p,
+            ctypes.c_int, ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_void_p,
         ]
         lib.molkgnn_support_score.restype = ctypes.c_int
+        lib.molkgnn_support_score_scratch.argtypes = [
+            ctypes.c_int, ctypes.POINTER(ctypes.c_int64),
+        ]
+        lib.molkgnn_support_score_scratch.restype = ctypes.c_int64
+        lib.molkgnn_support_score_facts.argtypes = [
+            ctypes.POINTER(ctypes.c_int)
+        ]
+        lib.molkgnn_support_score_facts.restype = ctypes.c_int
         lib.molkgnn_error_string.argtypes = [ctypes.c_int]
         lib.molkgnn_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def _raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.molkgnn_error_string(err).decode()
+        raise RuntimeError(
+            f"support score kernel {what} failed: {msg} ({err})"
+        )
+
+
+def block_order(shapes) -> list[int]:
+    """Order in which the kernel lays out the groups' blocks: heaviest
+    first by M*K*L*P (ties keep their order), so that the light groups'
+    small tiles fill the tail of the launch. shapes: [(M, K, L, P)]."""
+    def weight(i):
+        m, k, l, p = shapes[i]
+        return m * k * l * p
+
+    return sorted(range(len(shapes)), key=lambda i: -weight(i))
+
+
+def output_offsets(shapes) -> tuple[list[int], int]:
+    """Element offsets of the groups' [M, L] outputs in one flat buffer, and
+    the buffer's length rounded up to a multiple of 4, where the scratch
+    for packed B starts, 16-byte aligned. shapes: [(M, K, L, P)]."""
+    offsets, n = [], 0
+    for m, _, l, _ in shapes:
+        offsets.append(n)
+        n += m * l
+    return offsets, -(-n // 4) * 4
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(shapes: tuple):
+    """(block order, output offsets, outputs' length, scratch start,
+    scratch floats) for groups of these (M, K, L, P); the scratch size is
+    asked of the kernel library, which lays out the packed B."""
+    lib = _kernel_lib()
+    args = [v for shape in shapes for v in (0, 0, 0, 0, *shape)]
+    scratch = lib.molkgnn_support_score_scratch(
+        len(shapes), (ctypes.c_int64 * len(args))(*args)
+    )
+    if scratch < 0:
+        raise ValueError(f"support kernel does not take groups {shapes}")
+    offsets, start = output_offsets(shapes)
+    n_out = sum(m * l for m, _, l, _ in shapes)
+    return tuple(block_order(shapes)), tuple(offsets), n_out, start, scratch
+
+
 def _launch(a_list, b_list):
-    """Launch the kernel once over all groups; returns [(best, idx)]."""
+    """Launch the kernel once over all groups; returns [(best, idx)].
+
+    One float32 allocation holds every group's best and, after them, the
+    scratch for B packed by the kernel; one int32 allocation holds the
+    argmaxes; each group's outputs are strided views into them. The
+    arguments travel in one int64 array. All this keeps the host's share
+    of a launch small.
+    """
     g = len(a_list)
     if not 1 <= g <= MAX_GROUPS:
         raise ValueError(
             f"support kernel takes 1..{MAX_GROUPS} groups, got {g}"
         )
+    shapes = []
     for a, b in zip(a_list, b_list):
         _check(a, b)
+        shapes.append((a.shape[0], a.shape[1], b.shape[2], b.shape[0]))
+    shapes = tuple(shapes)
+    order, offsets, n_out, start, scratch = _plan(shapes)
     device = a_list[0].device
-    outs = []
-    for a, b in zip(a_list, b_list):
-        shape = (a.shape[0], b.shape[2])
-        outs.append((
-            torch.empty(shape, dtype=torch.float32, device=device),
-            torch.empty(shape, dtype=torch.int32, device=device),
-        ))
+    floats = torch.empty(start + scratch, dtype=torch.float32, device=device)
+    ints = torch.empty(n_out, dtype=torch.int32, device=device)
+    outs = [
+        (
+            floats.as_strided((m, l), (l, 1), o),
+            ints.as_strided((m, l), (l, 1), o),
+        )
+        for (m, _, l, _), o in zip(shapes, offsets)
+    ]
+    fp, ip = floats.data_ptr(), ints.data_ptr()
+    args = []
+    for i in order:
+        args += (
+            a_list[i].data_ptr(), b_list[i].data_ptr(),
+            fp + 4 * offsets[i], ip + 4 * offsets[i], *shapes[i],
+        )
     lib = _kernel_lib()
-    ptrs = ctypes.c_uint64 * g
-    ints = ctypes.c_int * g
-    with torch.cuda.device(device):
+    same = device.index == torch.cuda.current_device()
+    with contextlib.nullcontext() if same else torch.cuda.device(device):
         err = lib.molkgnn_support_score(
-            g,
-            ptrs(*(a.data_ptr() for a in a_list)),
-            ptrs(*(b.data_ptr() for b in b_list)),
-            ptrs(*(best.data_ptr() for best, _ in outs)),
-            ptrs(*(idx.data_ptr() for _, idx in outs)),
-            ints(*(a.shape[0] for a in a_list)),
-            ints(*(a.shape[1] for a in a_list)),
-            ints(*(b.shape[2] for b in b_list)),
-            ints(*(b.shape[0] for b in b_list)),
-            torch.cuda.current_stream(device).cuda_stream,
+            g, (ctypes.c_int64 * len(args))(*args), fp + 4 * start, scratch,
+            torch._C._cuda_getCurrentRawStream(device.index),
         )
-    if err != 0:
-        msg = lib.molkgnn_error_string(err).decode()
-        raise RuntimeError(
-            f"support score kernel launch failed: {msg} ({err})"
-        )
+    _raise_on(lib, err, "launch")
     return outs
+
+
+FACT_NAMES = (
+    "registers", "static_smem_bytes", "dynamic_smem_bytes", "blocks_per_sm",
+    "local_bytes", "perm_chunk", "block_rows", "block_kernels", "threads",
+)
+
+
+def kernel_facts() -> list[dict]:
+    """The built kernel's facts on the current device, one dict per tile
+    shape (see ``molkgnn_support_score_facts`` in csrc/support_score.cu)."""
+    lib = _kernel_lib()
+    out = (ctypes.c_int * (len(FACT_NAMES) * 4))()
+    _raise_on(lib, lib.molkgnn_support_score_facts(out), "query")
+    n = len(FACT_NAMES)
+    return [dict(zip(FACT_NAMES, out[t * n:(t + 1) * n])) for t in range(4)]
 
 
 def fused_support_score(a: torch.Tensor, b: torch.Tensor):

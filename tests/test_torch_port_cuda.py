@@ -15,12 +15,32 @@ import torch
 from molkgnn_torch.ops import support_score as ss
 from molkgnn_torch.ops.similarity import normalize_rows
 
-# (M, K, L, P): the ragged shapes of tests/test_pallas.py's grouped case,
-# plus P > 12 (two permutation passes) and L > 64 (two column tiles).
-SHAPES = [
-    (37, 28, 10, 1), (61, 56, 20, 2), (23, 84, 30, 6), (49, 112, 50, 12),
-    (1, 3, 70, 13), (130, 500, 129, 25),
-]
+# Cases of (M, K, L, P) groups, each scored in one grouped launch. The
+# kernel's block tiles are 200 rows x 10 kernels at P = 12 (and any P > 6),
+# 136 x 30 at P = 6 (and P = 3..5), 408 x 20 at P = 2 and 512 x 10 at P = 1.
+CASES = {
+    # The ragged shapes of tests/test_pallas.py's grouped case, plus P > 12
+    # (passes of 12 permutations) and L past several column tiles.
+    "ragged": [
+        (37, 28, 10, 1), (61, 56, 20, 2), (23, 84, 30, 6), (49, 112, 50, 12),
+        (1, 3, 70, 13), (130, 500, 129, 25),
+    ],
+    "rows_at_tile_edges": [
+        (0, 28, 10, 1), (1, 56, 20, 2), (199, 44, 50, 12), (200, 44, 50, 12),
+        (201, 44, 50, 12), (135, 33, 30, 6), (136, 33, 30, 6),
+        (137, 33, 30, 6), (407, 17, 20, 2), (408, 17, 20, 2),
+        (409, 17, 20, 2), (511, 9, 10, 1), (512, 9, 10, 1), (513, 9, 10, 1),
+    ],
+    "k_mod_4": [(50, k, 50, 12) for k in (1, 2, 3, 5, 6, 7, 110, 330)],
+    "ragged_kernels": [(70, 19, l, 6) for l in (3, 10, 50, 65, 129)],
+    "permutations": [(45, 21, 11, p) for p in (1, 2, 3, 5, 6, 12, 13, 25)],
+    "sixteen_groups": [(9 + i, 5 + i, 3 + i, 1 + i % 13) for i in range(16)],
+    # The flagship N-hop layer at batch 1024: degrees 1-4.
+    "flagship_nhop": [
+        (19232, 110, 10, 1), (13640, 220, 20, 2), (8144, 330, 30, 6),
+        (7064, 440, 50, 12),
+    ],
+}
 
 
 def _needs_card():
@@ -44,23 +64,49 @@ def _unit_operands(rng, shapes):
     return [x.cuda() for x in a], [x.cuda() for x in b]
 
 
-@pytest.mark.cuda
-def test_cuda_kernel_matches_plain():
-    """The kernel against its plain version in one grouped launch: best
-    within 1e-5, argmax equal where the top two scores are > 1e-4 apart."""
-    _needs_card()
-    a_list, b_list = _unit_operands(np.random.default_rng(1), SHAPES)
-    before = ss.grouped_support_score.launches
-    outs = ss.grouped_support_score(a_list, b_list)
-    torch.cuda.synchronize()
-    assert ss.grouped_support_score.launches == before + 1
+def _assert_matches_plain(outs, a_list, b_list):
+    """best within 1e-5 of the plain version; argmax equal wherever the
+    top two scores are more than 1e-4 apart."""
     for (best, idx), a, b in zip(outs, a_list, b_list):
         want_best, want_idx = ss.support_score_plain(a, b)
+        assert best.shape == want_best.shape and idx.dtype == torch.int32
         torch.testing.assert_close(best, want_best, rtol=1e-5, atol=1e-5)
+        if a.shape[0] == 0:
+            continue
         sc = torch.einsum("mk,pkl->mlp", a.double(), b.double())
         top2 = sc.topk(min(2, sc.shape[2]), dim=2).values
         clear = (top2[..., 0] - top2[..., -1] > 1e-4) | (sc.shape[2] == 1)
         assert torch.equal(idx[clear], want_idx[clear])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_cuda_kernel_matches_plain(case):
+    """The kernel against its plain version in one grouped launch."""
+    _needs_card()
+    a_list, b_list = _unit_operands(np.random.default_rng(1), CASES[case])
+    before = ss.grouped_support_score.launches
+    outs = ss.grouped_support_score(a_list, b_list)
+    torch.cuda.synchronize()
+    assert ss.grouped_support_score.launches == before + 1
+    _assert_matches_plain(outs, a_list, b_list)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_takes_views_with_an_offset():
+    """Contiguous views that start inside their storage (4-byte aligned
+    only) are accepted and scored right."""
+    _needs_card()
+    (a,), (b,) = _unit_operands(np.random.default_rng(2), [(77, 110, 30, 6)])
+    a_buf = torch.zeros(a.numel() + 1, device="cuda")
+    a_buf[1:] = a.flatten()
+    b_buf = torch.zeros(b.numel() + 3, device="cuda")
+    b_buf[3:] = b.flatten()
+    a_view, b_view = a_buf[1:].view(a.shape), b_buf[3:].view(b.shape)
+    assert a_view.storage_offset() == 1 and a_view.is_contiguous()
+    outs = [ss.fused_support_score(a_view, b_view)]
+    torch.cuda.synchronize()
+    _assert_matches_plain(outs, [a], [b])
 
 
 @pytest.mark.cuda

@@ -120,3 +120,52 @@ def test_non_cpu_tensor_never_reaches_plain():
         ss.fused_support_score(a, b)
     with pytest.raises(ValueError, match="several devices"):
         ss.grouped_support_score([torch.randn(5, 6)], [b])
+
+
+@pytest.mark.parametrize(
+    "shapes,want",
+    [
+        # The flagship N-hop layer: degree 4 carries 75% of the work, then 3.
+        ([(19232, 110, 10, 1), (13640, 220, 20, 2), (8144, 330, 30, 6),
+          (7064, 440, 50, 12)], [3, 2, 1, 0]),
+        # Equal weights keep their order; empty groups go last.
+        ([(0, 8, 3, 2), (4, 8, 3, 2), (2, 16, 3, 2), (4, 8, 3, 2)],
+         [1, 2, 3, 0]),
+        ([(5, 6, 3, 2)], [0]),
+    ],
+)
+def test_block_order_heaviest_first(shapes, want):
+    """The grouped launch lays out its blocks heaviest group first."""
+    order = ss.block_order(shapes)
+    assert order == want
+    weights = [m * k * l * p for m, k, l, p in (shapes[i] for i in order)]
+    assert weights == sorted(weights, reverse=True)
+
+
+@pytest.mark.parametrize(
+    "shapes,offsets,start",
+    [
+        ([(37, 28, 10, 1), (0, 56, 20, 2), (3, 84, 3, 6)], [0, 370, 370], 380),
+        ([(4, 8, 3, 5)], [0], 12),
+        ([(2, 8, 2, 5), (1, 8, 2, 5)], [0, 4], 8),
+    ],
+)
+def test_output_offsets_pack_groups_and_align_scratch(shapes, offsets, start):
+    """Every group's [M, L] outputs lie back to back in one buffer; the
+    scratch after them starts on a 16-byte boundary."""
+    got_offsets, got_start = ss.output_offsets(shapes)
+    assert got_offsets == offsets and got_start == start
+    assert got_start % 4 == 0
+    assert got_start >= offsets[-1] + shapes[-1][0] * shapes[-1][2]
+
+
+def test_scorer_variants_apply_to_the_kernel_source():
+    """Each diagnostic variant of molkgnn_torch/tools/scorer_variants.py
+    edits text that the kernel source holds exactly once."""
+    from molkgnn_torch.ops._build import CSRC
+    from molkgnn_torch.tools.scorer_variants import VARIANTS
+
+    src = (CSRC / "support_score.cu").read_text()
+    for subs in VARIANTS.values():
+        for old, _ in subs:
+            assert src.count(old) == 1, old
