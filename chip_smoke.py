@@ -31,6 +31,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
               synthetic molecules and at 4 layers on tie-free ones. Then
               the throughput of both forms and a profile of where the
               device time goes.
+  5. train:   the training path, with the scorer's torch.autograd.Function
+              (kernel forward, plain-torch backward). (a) Its gradients at
+              one flagship grouped launch of layer 0 and one of an N-hop
+              layer against autograd through einsum + max (max |diff| <=
+              1e-4 where the top two scores are more than 1e-4 apart), its
+              backward's time, and the memory a forward leaves behind.
+              (b) 3 optimizer steps of the flagship with use_kernel=True
+              and False from the same weights, batch 256 of tie-free
+              molecules, dropout 0: losses within 1e-4 relative. (c) The
+              main path: Trainer(...).fit() then .test() for the flagship
+              (use_kernel=True) on make_synthetic_dataset(num_graphs=8192)
+              at batch 1024 for 2 epochs; the grouped scorer must launch
+              4 times per optimizer step plus 4 per evaluation batch, every
+              step's loss be finite and the artifacts exist. (d) Train
+              graphs/s of both forms (median step after the first) and a
+              profile of one step. (e) A learning check on
+              make_motif_dataset: the last epoch's train loss below the
+              first's.
 
 The last lines are the kernel record ({"kernels": [...]}), the card's
 name and power limit, and {"ok": true, "device": {...}}.
@@ -40,8 +58,10 @@ from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -112,6 +132,21 @@ def device_ms(torch, fn, reps: int = 20):
     return total_us / 1e3 / reps if total_us > 0 else None
 
 
+def device_rows(prof):
+    """(self device ms, count, name) of each kernel in a profile; user
+    annotations (e.g. ``Optimizer.step#AdamW.step``) are spans over
+    kernels, not kernels, and are left out."""
+    from torch.autograd import DeviceType
+
+    return [
+        (evt.self_device_time_total / 1e3, evt.count, evt.key)
+        for evt in prof.key_averages()
+        if evt.device_type == DeviceType.CUDA
+        and evt.self_device_time_total > 0
+        and not getattr(evt, "is_user_annotation", False)
+    ]
+
+
 def total(times):
     """Sum of times, or None where any of them was not measured."""
     times = list(times)
@@ -137,6 +172,20 @@ def bound_ms(shapes):
 class Smoke:
     def __init__(self, torch):
         self.torch = torch
+
+    def flagship(self, num_layers, use_kernel, seed=SEED, dropout=None):
+        """The flagship GNNModel(MolKGNNNet) with random weights from
+        ``seed``; ``dropout`` sets both dropout rates (default: the model's
+        defaults, 0 in the encoder and 0.25 before the head)."""
+        from molkgnn_torch.models.kgnn import MolKGNNNet
+        from molkgnn_torch.training.model import GNNModel
+
+        gen = self.torch.Generator().manual_seed(seed)
+        rates = {} if dropout is None else {"drop_ratio": dropout}
+        head = {} if dropout is None else {"ffn_dropout_rate": dropout}
+        enc = MolKGNNNet(num_layers=num_layers, use_kernel=use_kernel,
+                         generator=gen, **rates)
+        return GNNModel(enc, generator=gen, **head)
 
     # ------------------------------------------------------------ phase 3
     def operands(self, m, d, f, l, gen):
@@ -295,22 +344,15 @@ class Smoke:
     def phase_serve(self, graphs, spec):
         from molkgnn_torch.data.synthetic import tie_free_molgraph
         from molkgnn_torch.graphs.batch import batch_graphs, spec_for_graphs
-        from molkgnn_torch.models.kgnn import KernelConv, MolKGNNNet
+        from molkgnn_torch.models.kgnn import KernelConv
         from molkgnn_torch.ops import support_score as ss
         from molkgnn_torch.serving.predictor import Predictor
-        from molkgnn_torch.training.model import GNNModel
 
         import numpy as np
 
         torch = self.torch
         card = torch.cuda.get_device_name(0)
-
-        def flagship(num_layers, use_kernel, seed=SEED):
-            gen = torch.Generator().manual_seed(seed)
-            enc = MolKGNNNet(
-                num_layers=num_layers, use_kernel=use_kernel, generator=gen
-            )
-            return GNNModel(enc, generator=gen)
+        flagship = self.flagship
 
         # --- the main path, counted -------------------------------------
         model = flagship(4, True)
@@ -426,7 +468,6 @@ class Smoke:
     def profile(self, models, batches):
         """Device time by kernel over one forward pass of all chunks."""
         torch = self.torch
-        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
         for use_kernel, pred in models.items():
@@ -441,12 +482,7 @@ class Smoke:
                         pred.model(b)
                     torch.cuda.synchronize()
                     wall_ms = (time.perf_counter() - t0) * 1e3
-            rows = [
-                (evt.self_device_time_total / 1e3, evt.count, evt.key)
-                for evt in prof.key_averages()
-                if evt.device_type == DeviceType.CUDA
-                and evt.self_device_time_total > 0
-            ]
+            rows = device_rows(prof)
             busy = sum(r[0] for r in rows)
             if not rows:
                 log(f"  profile use_kernel={use_kernel}: no device time "
@@ -460,6 +496,334 @@ class Smoke:
                 f"(share {scorer / busy:.3f})")
             for ms, count, key in sorted(rows, reverse=True)[:10]:
                 log(f"    {ms:9.3f} ms  x{count:<5d} {key[:90]}")
+
+    # ------------------------------------------------------------ phase 5
+    def grad_check(self, spec):
+        """The Function's gradients at flagship grouped launches against
+        autograd through the plain version; its backward's time; what a
+        forward leaves allocated once its outputs are dropped."""
+        from molkgnn_torch.ops import support_score as ss
+        from molkgnn_torch.ops.permutations import num_perms
+
+        torch = self.torch
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+        caps = spec.deg_capacity
+        nhop_f = sum(FLAGSHIP_KERNELS)
+        self.backward_ms = {}
+        for layer, f in (("layer 0", 28), ("N-hop layer", nhop_f)):
+            dims = [(caps[d - 1], d, f, FLAGSHIP_KERNELS[d - 1])
+                    for d in range(1, 5)]
+            ops = [self.operands(m, d, ff, l, gen) for m, d, ff, l in dims]
+            a_list, b_list = [a for a, _ in ops], [b for _, b in ops]
+            g_list, excluded = [], 0
+            for a, b in ops:
+                sc = torch.einsum("mk,pkl->mlp", a, b)
+                if sc.shape[2] > 1:
+                    top2 = sc.topk(2, dim=2).values
+                    clear = (top2[..., 0] - top2[..., 1]) > 1e-4
+                else:
+                    clear = torch.ones(sc.shape[:2], dtype=torch.bool,
+                                       device="cuda")
+                excluded += int((~clear).sum())
+                g = torch.randn(sc.shape[:2], generator=gen, device="cuda")
+                g_list.append(torch.where(clear, g, 0.0))
+            ta = [a.clone().requires_grad_() for a in a_list]
+            tb = [b.clone().requires_grad_() for b in b_list]
+            torch.cuda.synchronize()
+            held0 = torch.cuda.memory_allocated()
+            outs = ss.grouped_support_score(ta, tb)
+            torch.cuda.synchronize()
+            held1 = torch.cuda.memory_allocated()
+            bests = [best for best, _ in outs]
+            loss = sum((best * g).sum() for best, g in zip(bests, g_list))
+            del outs, bests
+            torch.cuda.synchronize()
+            held2 = torch.cuda.memory_allocated()
+            loss.backward()
+            pa = [a.clone().requires_grad_() for a in a_list]
+            pb = [b.clone().requires_grad_() for b in b_list]
+            sum(
+                (torch.einsum("mk,pkl->mlp", a, b).max(dim=2).values * g)
+                .sum() for a, b, g in zip(pa, pb, g_list)
+            ).backward()
+            err_a = max((x.grad - y.grad).abs().max().item()
+                        for x, y in zip(ta, pa))
+            err_b = max((x.grad - y.grad).abs().max().item()
+                        for x, y in zip(tb, pb))
+            log(f"  gradient check, grouped {layer}: max |da - plain| = "
+                f"{err_a:.3e}, max |db - plain| = {err_b:.3e} ({excluded} "
+                f"entries within 1e-4 of a tie given no gradient)")
+            if max(err_a, err_b) > 1e-4:
+                raise AssertionError(f"{layer}: gradient differs by > 1e-4")
+            log(f"    a forward allocates {(held1 - held0) / 2**20:.2f} MiB; "
+                f"with its outputs dropped and the graph kept, "
+                f"{(held2 - held0) / 2**20:.2f} MiB stay (the argmaxes "
+                f"{sum(4 * m * l for m, _, _, l in dims) / 2**20:.2f} MiB, "
+                "the loss's terms)")
+            flat = ss._SupportScore.apply(ss.grouped_support_score, 4, *ta, *tb)
+            ms = time_ms(torch, lambda: torch.autograd.grad(
+                flat[:4], ta + tb, g_list, retain_graph=True))
+            self.backward_ms[layer] = ms
+            shapes = [(m, d * ff, l, num_perms(d)) for m, d, ff, l in dims]
+            flops = sum(4 * m * k * l * p for m, k, l, p in shapes)
+            log(f"    backward (plain torch, a scatter and two products): "
+                f"{ms:.4f} ms, {flops / ms / 1e6:.1f} GFLOP/s of "
+                f"4*M*K*L*P")
+        self.backward_step_ms = (self.backward_ms["layer 0"]
+                                 + 3 * self.backward_ms["N-hop layer"])
+        log(f"  backward per flagship train step (layer 0 + 3 N-hop): "
+            f"{self.backward_step_ms:.4f} ms")
+
+    def kernel_vs_plain_training(self):
+        """3 optimizer steps with the kernel and with the plain products
+        from the same weights: losses within 1e-4 relative, and parameters
+        within 1e-5. Adam moves a weight by about the learning rate
+        (1.7e-3 at step 1) whatever its gradient's size, so a gradient term
+        lost on one side shows as a difference of that order."""
+        import numpy as np
+
+        from molkgnn_torch.data.dataset import QSAR_METRICS, Dataset
+        from molkgnn_torch.data.synthetic import tie_free_molgraph
+        from molkgnn_torch.graphs.batch import spec_for_graphs
+        from molkgnn_torch.training.trainer import TrainConfig, Trainer
+
+        rng = np.random.default_rng(SEED)
+        graphs = [tie_free_molgraph(rng) for _ in range(800)]
+        for g in graphs:
+            g.y = float(rng.random() < 0.5)
+        ds = Dataset("tie_free", graphs,
+                     {"train": np.arange(768), "valid": np.arange(768, 784),
+                      "test": np.arange(784, 800)},
+                     list(QSAR_METRICS), "bce_with_logits")
+        spec = spec_for_graphs(graphs, 256)
+        cfg = TrainConfig(batch_size=256, warmup_iterations=3,
+                          progress=False)
+        trainers = {}
+        for use_kernel in (True, False):
+            model = self.flagship(4, use_kernel, seed=SEED + 1, dropout=0.0)
+            trainers[use_kernel] = Trainer(model, ds, spec, cfg)
+        trainers[False].model.load_state_dict(
+            trainers[True].model.state_dict())
+        for step in range(3):
+            ids = np.arange(256 * step, 256 * (step + 1), dtype=np.int32)
+            losses = {k: float(t._step_ids(ids)) for k, t in
+                      trainers.items()}
+            rel = abs(losses[True] - losses[False]) / abs(losses[False])
+            log(f"  step {step + 1}: loss kernel {losses[True]:.7f}, plain "
+                f"{losses[False]:.7f} (relative difference {rel:.2e})")
+            if rel > 1e-4:
+                raise AssertionError("kernel and plain losses differ")
+        sd = trainers[False].model.state_dict()
+        diff = max(
+            (v - sd[k]).abs().max().item()
+            for k, v in trainers[True].model.state_dict().items()
+        )
+        log(f"  largest parameter difference after 3 steps: {diff:.3e} "
+            f"(learning rate of step 3: {trainers[True].schedule(2):.3e})")
+        if diff > 1e-5:
+            raise AssertionError("kernel and plain parameters differ by "
+                                 "more than 1e-5 after 3 steps")
+
+    def main_train_path(self, tmp):
+        """Trainer.fit() + .test(), counted (see the module doc)."""
+        import numpy as np
+
+        from molkgnn_torch.data.dataset import make_synthetic_dataset
+        from molkgnn_torch.graphs.batch import spec_for_graphs
+        from molkgnn_torch.ops import support_score as ss
+        from molkgnn_torch.training.trainer import TrainConfig, Trainer
+
+        t0 = time.perf_counter()
+        ds = make_synthetic_dataset(num_graphs=NUM_MOLECULES)
+        spec = spec_for_graphs(ds.graphs, BATCH)
+        log(f"  make_synthetic_dataset({NUM_MOLECULES}) in "
+            f"{time.perf_counter() - t0:.1f} s; split sizes "
+            f"{ {k: len(v) for k, v in ds.split.items()} }")
+        cfg = TrainConfig(
+            batch_size=BATCH, max_epochs=2, progress=False,
+            log_dir=os.path.join(tmp, "logs"),
+            checkpoint_dir=os.path.join(tmp, "ckpt"),
+        )
+        trainer = Trainer(self.flagship(4, True), ds, spec, cfg)
+        if trainer.device.type != "cuda":
+            raise AssertionError("the Trainer did not default to the card")
+        ss.grouped_support_score.launches = 0
+        ss.fused_support_score.launches = 0
+        t0 = time.perf_counter()
+        history = trainer.fit()
+        tested = trainer.test()
+        secs = time.perf_counter() - t0
+        launches = {
+            "grouped_support_score": ss.grouped_support_score.launches,
+            "fused_support_score": ss.fused_support_score.launches,
+        }
+        eval_batches = (
+            cfg.max_epochs * -(-len(ds.split["valid"]) // BATCH)
+            + len(tested) * -(-len(ds.split["test"]) // BATCH)
+        )
+        want = 4 * trainer.step + 4 * eval_batches
+        log(f"  main path: fit + test in {secs:.2f} s, {trainer.step} "
+            f"optimizer steps, {eval_batches} evaluation batches, "
+            f"launches {launches} (want {want} grouped)")
+        if launches["grouped_support_score"] != want:
+            raise AssertionError("grouped launches are not 4 per step and "
+                                 "per evaluation batch")
+        losses = np.array(trainer.step_losses)
+        if losses.shape != (trainer.step,) or not np.isfinite(losses).all():
+            raise AssertionError(f"step losses not all finite: {losses}")
+        n_train = len(ds.split["train"])  # graphs drawn per epoch
+        for e in history:
+            train_s = e["train_dispatch_time_s"] + e["train_readback_time_s"]
+            log(f"  epoch {e['epoch']}: train_loss {e['train_loss']:.5f}, "
+                f"valid loss {e['loss']:.5f}, AUC {e['AUC']:.4f}; epoch "
+                f"{e['epoch_time_s']:.3f} s (steps "
+                f"{e['train_dispatch_time_s']:.3f}, readback "
+                f"{e['train_readback_time_s']:.3f}, eval "
+                f"{e['eval_time_s']:.3f}); train {n_train / train_s:.1f} "
+                f"graphs/s over steps and readback")
+        log(f"  test: " + ", ".join(
+            f"{tag} AUC {m['AUC']:.4f}" for tag, m in tested.items()))
+        files = ["logs/history.json", "logs/test_result.log"] + [
+            f"logs/test_sample_scores_{tag}.log" for tag in tested
+        ] + [f"ckpt/{tag}.pt" for tag in trainer._ckpts]
+        missing = [f for f in files
+                   if not os.path.exists(os.path.join(tmp, f))]
+        if missing:
+            raise AssertionError(f"missing artifacts: {missing}")
+        log(f"  artifacts: {', '.join(files)}")
+        self.train_launches = launches
+        self.train_data = (ds, spec)
+
+    def train_throughput(self):
+        """Train graphs/s of both forms, forms in turns: the graphs of a
+        run of steps over its wall time, the steps launched back to back
+        and the card synchronised once at the end, as fit() runs them; and,
+        as a per-step statistic, the median of synchronised steps after
+        the first."""
+        from molkgnn_torch.training.trainer import TrainConfig, Trainer
+
+        torch = self.torch
+        ds, spec = self.train_data
+        cfg = TrainConfig(batch_size=BATCH, progress=False)
+        trainers = {k: Trainer(self.flagship(4, k), ds, spec, cfg)
+                    for k in (True, False)}
+        batches = [ids for ids in trainers[True]._epoch_id_batches()
+                   if (ids >= 0).all()]
+        for trainer in trainers.values():  # warm: first products, allocator
+            trainer._step_ids(batches[0])
+        rates = {True: [], False: []}
+        steps = {True: [], False: []}
+        for use_kernel in (True, False, False, True):
+            trainer = trainers[use_kernel]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for ids in batches:
+                trainer._step_ids(ids)
+            torch.cuda.synchronize()
+            rates[use_kernel].append(
+                len(batches) * BATCH / (time.perf_counter() - t0))
+            run = []
+            for ids in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                trainer._step_ids(ids)
+                torch.cuda.synchronize()
+                run.append(time.perf_counter() - t0)
+            steps[use_kernel].append(run)
+        card = torch.cuda.get_device_name(0)
+        self.train_throughput_record = {}
+        for use_kernel in (True, False):
+            medians = [statistics.median(r[1:]) for r in steps[use_kernel]]
+            self.train_throughput_record[f"use_kernel={use_kernel}"] = {
+                "graphs_per_s": rates[use_kernel],
+                "median_step_s": medians,
+                "step_s": steps[use_kernel],
+            }
+            log(f"  use_kernel={use_kernel} on {card}: train "
+                f"{', '.join(f'{r:.1f}' for r in rates[use_kernel])} "
+                f"graphs/s (two runs of {len(batches)} steps at batch "
+                f"{BATCH}, one synchronisation each); synchronised steps: "
+                f"median after the first "
+                f"{', '.join(f'{m * 1e3:.3f}' for m in medians)} ms, steps "
+                f"{[[round(t, 5) for t in r] for r in steps[use_kernel]]} s")
+        self.profile_step(trainers[True], batches[0])
+
+    def profile_step(self, trainer, ids):
+        """torch.profiler over one train step: the device time of its
+        forward, backward and optimizer (each in its own window) and, over
+        the whole step, the idle share, the scorer's share and the top 10
+        kernels."""
+        from torch.profiler import ProfilerActivity, profile
+
+        from molkgnn_torch.graphs.device_pack import gather_batch
+
+        torch = self.torch
+        self.step_profile = None
+
+        def busy(prof):
+            rows = device_rows(prof)
+            return sum(r[0] for r in rows), rows
+
+        def window(fn):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            return out, busy(prof), wall
+
+        ids_dev = torch.as_tensor(ids, device="cuda")
+        trainer._step_ids(ids)  # warm
+        parts, walls = {}, {}
+        batch, parts["gather"], walls["gather"] = window(
+            lambda: gather_batch(trainer._device_data, ids_dev, trainer.spec))
+        loss, parts["forward"], walls["forward"] = window(
+            lambda: trainer._loss(batch))
+        _, parts["backward"], walls["backward"] = window(loss.backward)
+        _, parts["optimizer"], walls["optimizer"] = window(trainer._update)
+        log("  one step by part (own profiler windows), device ms of wall "
+            "ms: " + ", ".join(f"{k} {v[0]:.3f} of {walls[k]:.3f}"
+                               for k, v in parts.items()))
+        _, (total, rows), wall = window(lambda: trainer._step_ids(ids))
+        if not rows:
+            log("  profile: no device time recorded (not measured)")
+            return
+        scorer = sum(r[0] for r in rows if KERNEL_NAME in r[2])
+        log(f"  whole step: device busy {total:.3f} ms of {wall:.3f} ms "
+            f"wall (idle share {1 - total / wall:.3f}, profiler on); scorer "
+            f"{scorer:.3f} ms (share {scorer / total:.3f})")
+        for ms, count, key in sorted(rows, reverse=True)[:10]:
+            log(f"    {ms:9.3f} ms  x{count:<5d} {key[:90]}")
+        self.step_profile = {k: v[0] for k, v in parts.items()}
+        self.step_profile.update(step_busy_ms=total, step_wall_ms=wall,
+                                 scorer_ms=scorer)
+
+    def learning_check(self, tmp):
+        from molkgnn_torch.data.dataset import make_motif_dataset
+        from molkgnn_torch.graphs.batch import spec_for_graphs
+        from molkgnn_torch.training.trainer import TrainConfig, Trainer
+
+        ds = make_motif_dataset(seed=SEED, num_graphs=2048)
+        spec = spec_for_graphs(ds.graphs, 256)
+        cfg = TrainConfig(batch_size=256, max_epochs=8, warmup_iterations=10,
+                          peak_lr=5e-2, progress=False,
+                          log_dir=os.path.join(tmp, "motif"))
+        history = Trainer(self.flagship(4, True), ds, spec, cfg).fit()
+        log("  motif: train loss " + ", ".join(
+            f"{e['train_loss']:.4f}" for e in history) + "; valid AUC "
+            + ", ".join(f"{e['AUC']:.4f}" for e in history))
+        if not history[-1]["train_loss"] < history[0]["train_loss"]:
+            raise AssertionError("the motif train loss did not fall")
+
+    def phase_train(self, spec):
+        self.grad_check(spec)
+        self.kernel_vs_plain_training()
+        with tempfile.TemporaryDirectory() as tmp:
+            self.main_train_path(tmp)
+            self.train_throughput()
+            self.learning_check(tmp)
 
     # ------------------------------------------------------------ record
     def kernel_record(self):
@@ -475,6 +839,11 @@ class Smoke:
             "per request 1 launch at layer 0 + 3 at N-hop layers",
             "fused_support_score": "KernelConv(use_kernel=True), one "
             "launch per degree bucket at layer-0 shapes",
+        }
+        train_paths = {
+            "grouped_support_score": "training: Trainer.fit + test, 4 "
+            "launches per optimizer step and per evaluation batch",
+            "fused_support_score": "not on the training path",
         }
         for name in ("grouped_support_score", "fused_support_score"):
             if name == "grouped_support_score":
@@ -501,7 +870,11 @@ class Smoke:
                 "library_ms": ms[2],
                 "device_ms": ms[3],
                 "path": paths[name],
+                "train_launches": self.train_launches[name],
+                "train_path": train_paths[name],
             })
+            if name == "grouped_support_score":
+                entries[-1]["backward_ms_per_step"] = self.backward_step_ms
         return {"kernels": entries}
 
 
@@ -557,13 +930,20 @@ def main() -> int:
         phase = "serve"
         log("[4] serving path")
         smoke.phase_serve(graphs, spec)
+
+        phase = "train"
+        log("[5] training path")
+        smoke.phase_train(spec)
         record = smoke.kernel_record()
     except Exception:
         traceback.print_exc()
         print(f"chip_smoke: phase '{phase}' failed", file=sys.stderr)
         return 1
 
-    print(json.dumps({"throughput": smoke.throughput}), flush=True)
+    print(json.dumps({"throughput": smoke.throughput,
+                      "train_throughput": smoke.train_throughput_record,
+                      "train_step_profile_ms": smoke.step_profile}),
+          flush=True)
     print(json.dumps(record), flush=True)
     print(smi, flush=True)
     print(json.dumps({

@@ -1,0 +1,168 @@
+"""Datasets, splits and the host-side loader.
+
+Port of ``molkgnn_tpu/data/dataset.py`` (the synthetic datasets, the
+oversampling weights and ``GraphLoader``), with the same numpy RNG streams:
+the same seed draws the same graphs, splits and batch ids. Oversampling
+with replacement follows WeightedRandomSampler: inverse class-count
+weights, ``len(graphs)`` draws an epoch.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Iterator, List, Sequence
+
+import numpy as np
+
+from molkgnn_torch.data.synthetic import random_dataset, random_molgraph
+from molkgnn_torch.graphs.batch import BatchSpec, GraphBatch
+from molkgnn_torch.graphs.molgraph import MolGraph
+from molkgnn_torch.graphs.packed import PackedGraphs
+
+QSAR_METRICS = ["ppv", "logAUC_0.001_0.1", "logAUC_0.001_1", "f1_score", "AUC"]
+
+
+@dataclasses.dataclass
+class Dataset:
+    """A featurized dataset with split indices and evaluation contract."""
+
+    name: str
+    graphs: List[MolGraph]
+    split: Dict[str, np.ndarray]  # train/valid/test -> indices
+    metrics: List[str]
+    loss_name: str  # key into training.model.LOSSES
+
+    def subset(self, part: str) -> List[MolGraph]:
+        return [self.graphs[i] for i in self.split[part]]
+
+
+def _split(rng: np.random.Generator, num_graphs: int) -> Dict[str, np.ndarray]:
+    """80/10/10 split of a permutation drawn from ``rng``."""
+    perm = rng.permutation(num_graphs)
+    n_tr = int(num_graphs * 0.8)
+    n_va = int(num_graphs * 0.1)
+    return {
+        "train": np.sort(perm[:n_tr]),
+        "valid": np.sort(perm[n_tr : n_tr + n_va]),
+        "test": np.sort(perm[n_tr + n_va :]),
+    }
+
+
+def make_synthetic_dataset(
+    seed: int = 0,
+    num_graphs: int = 256,
+    active_fraction: float = 0.15,
+) -> Dataset:
+    """Random molecules with random labels and the QSAR evaluation
+    contract, for tests, benchmarks and smoke training."""
+    graphs = random_dataset(
+        seed=seed, num_graphs=num_graphs, active_fraction=active_fraction
+    )
+    return Dataset(
+        name="synthetic",
+        graphs=graphs,
+        split=_split(np.random.default_rng(seed + 1), num_graphs),
+        metrics=list(QSAR_METRICS),
+        loss_name="bce_with_logits",
+    )
+
+
+def make_motif_dataset(
+    seed: int = 0,
+    num_graphs: int = 256,
+    noise: float = 0.3,
+) -> Dataset:
+    """Molecules with a learnable label: positives carry a planted
+    4-neighbour feature motif around a degree-4 centre, the pattern the
+    kernel convolution is built to match."""
+    rng = np.random.default_rng(seed)
+    motifs = rng.standard_normal((4, 28)).astype(np.float32) * 2
+    graphs = []
+    while len(graphs) < num_graphs:
+        g = random_molgraph(rng, num_atoms=16)
+        if g.fields[4].count < 1:
+            continue
+        y = float(rng.random() < 0.5)
+        if y == 1.0:
+            nei = g.fields[4].nei_index[0]
+            for k in range(4):
+                g.x[int(nei[k])] = motifs[k] + noise * rng.standard_normal(
+                    28
+                ).astype(np.float32)
+            g.fields = None
+            g = g.with_fields()
+        g.y = y
+        g.idx = len(graphs)
+        graphs.append(g)
+    return Dataset(
+        name="synthetic_motif",
+        graphs=graphs,
+        split=_split(rng, num_graphs),
+        metrics=list(QSAR_METRICS),
+        loss_name="bce_with_logits",
+    )
+
+
+def oversampling_weights(labels: np.ndarray) -> np.ndarray:
+    """Inverse-class-count weights."""
+    n_active = int((labels == 1).sum())
+    n_inactive = int(labels.shape[0]) - n_active
+    return np.where(
+        labels == 1, 1.0 / max(n_active, 1), 1.0 / max(n_inactive, 1)
+    )
+
+
+def epoch_order(
+    rng: np.random.Generator,
+    labels: np.ndarray,
+    oversample: bool,
+    shuffle: bool,
+) -> np.ndarray:
+    """One epoch's positions into ``labels``: ``len(labels)`` weighted draws
+    with replacement, a permutation, or the identity, in that order of
+    precedence."""
+    n = labels.shape[0]
+    if oversample:
+        w = oversampling_weights(labels)
+        return rng.choice(n, size=n, replace=True, p=w / w.sum())
+    if shuffle:
+        return rng.permutation(n)
+    return np.arange(n)
+
+
+class GraphLoader:
+    """Host-side loader of fixed-shape GraphBatches (CPU tensors).
+
+    ``seed`` is an int or a ``np.random.Generator`` to draw from. The final
+    partial batch is padded with masked graphs, never dropped.
+    """
+
+    def __init__(
+        self,
+        graphs: Sequence[MolGraph],
+        spec: BatchSpec,
+        batch_size: int,
+        shuffle: bool = False,
+        oversample: bool = False,
+        seed=0,
+    ):
+        self.graphs = list(graphs)
+        self.spec = spec
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.oversample = oversample
+        self.rng = np.random.default_rng(seed)
+        self._packed = PackedGraphs.from_graphs(self.graphs)
+        self._labels = np.array([g.y for g in self.graphs])
+
+    def __len__(self) -> int:
+        return -(-len(self.graphs) // self.batch_size)
+
+    def __iter__(self) -> Iterator[GraphBatch]:
+        order = epoch_order(
+            self.rng, self._labels, self.oversample, self.shuffle
+        )
+        for start in range(0, len(order), self.batch_size):
+            yield self._packed.pack(
+                order[start : start + self.batch_size], self.spec
+            )

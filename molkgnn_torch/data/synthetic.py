@@ -15,8 +15,13 @@ import numpy as np
 from molkgnn_torch.graphs.molgraph import MolGraph
 
 
-def random_molgraph(rng: np.random.Generator, label: float) -> MolGraph:
-    n = int(rng.integers(8, 40))
+def random_molgraph(
+    rng: np.random.Generator,
+    num_atoms: int | None = None,
+    label: float | None = None,
+) -> MolGraph:
+    """One random molecule; ``label`` None draws a 0/1 label from ``rng``."""
+    n = int(num_atoms if num_atoms is not None else rng.integers(8, 40))
     node_dim, edge_dim = 28, 7
     deg = np.zeros(n, np.int64)
     bonds = []
@@ -59,12 +64,13 @@ def random_molgraph(rng: np.random.Generator, label: float) -> MolGraph:
 
     x = rng.standard_normal((n, node_dim)).astype(np.float32)
     p = rng.standard_normal((n, 3)).astype(np.float32) * 2.0
+    y = float(label if label is not None else rng.integers(0, 2))
     g = MolGraph(
         x=x,
         p=p,
         edge_index=np.array(edge_list, np.int32).T,
         edge_attr=np.array(edge_attr, np.float32),
-        y=float(label),
+        y=y,
         atomic_num=rng.integers(1, 10, size=n).astype(np.int32),
     )
     return g.with_fields()

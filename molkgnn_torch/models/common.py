@@ -43,3 +43,31 @@ class TorchLinear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight, self.bias)
+
+
+class Dropout(nn.Module):
+    """Inverted dropout whose mask draws from an explicit generator.
+
+    ``nn.Dropout`` draws from the global RNG; here the owner of the run (the
+    ``Trainer``) sets ``generator``, seeded from its config, so a run's
+    masks depend on its seed alone. In train mode each element is kept with
+    probability ``1 - rate`` and scaled by ``1 / (1 - rate)``; in eval mode,
+    or at rate 0, the input passes unchanged. The module holds no state.
+    """
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError(
+                "Dropout in train mode needs its generator set (the Trainer "
+                "sets it)"
+            )
+        keep = 1.0 - self.rate
+        mask = torch.empty_like(x).bernoulli_(keep, generator=self.generator)
+        return x * mask / keep

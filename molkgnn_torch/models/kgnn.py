@@ -32,10 +32,14 @@ import torch
 from torch import nn
 
 from molkgnn_torch.graphs.batch import DegreeBucket, GraphBatch
-from molkgnn_torch.models.common import TorchLinear, swish
+from molkgnn_torch.models.common import Dropout, TorchLinear, swish
 from molkgnn_torch.ops.norm import MaskedBatchNorm
 from molkgnn_torch.ops.permutations import perm_table
-from molkgnn_torch.ops.segment import gather_scatter_add, global_add_pool
+from molkgnn_torch.ops.segment import (
+    gather_scatter_add,
+    global_add_pool,
+    take_rows,
+)
 from molkgnn_torch.ops.similarity import (
     cosine_matrix,
     neighborhood_similarity,
@@ -109,7 +113,7 @@ class KernelConv(nn.Module):
         m = x_nei.shape[0]
         a = normalize_rows(x_nei).reshape(m, d * self.node_dim)
         b = (
-            normalize_rows(self.x_support[:, self.perms, :])
+            normalize_rows(take_rows(self.x_support, self.perms, 1))
             .reshape(L, len(self.perms), d * self.node_dim)
             .permute(1, 2, 0)
             .contiguous()
@@ -142,13 +146,13 @@ class KernelConv(nn.Module):
             best_idx = best_idx.long()
         else:
             support_sc = neighborhood_similarity(
-                x_nei, self.x_support[:, perms, :]
+                x_nei, take_rows(self.x_support, perms, 1)
             )  # [M, L, P]
             best_sc, best_idx = support_sc.max(dim=2)  # first max wins
 
         # --- edge-attribute score at the best alignment ---
         edge_sc_all = neighborhood_similarity(
-            e_nei, self.edge_attr_support[:, perms, :]
+            e_nei, take_rows(self.edge_attr_support, perms, 1)
         )  # [M, L, P]
         edge_sc = torch.gather(edge_sc_all, 2, best_idx[:, :, None])[:, :, 0]
 
@@ -169,10 +173,13 @@ class KernelConv(nn.Module):
         sc = best_sc * ws[0] + center_sc * ws[1] + edge_sc * ws[2]
 
         # --- chirality sign (deg 4, last layer only) ---
+        # A +-1 constant: its gradient is zero, so autograd skips it.
         if d == 4 and is_last_layer:
-            sc = sc * self._chirality_sign(
-                x_nei, p_nei - p_focal[:, None, :], best_idx
-            ).to(sc.dtype)
+            with torch.no_grad():
+                sign = self._chirality_sign(
+                    x_nei, p_nei - p_focal[:, None, :], best_idx
+                )
+            sc = sc * sign.to(sc.dtype)
 
         return torch.where(mask[:, None], sc, 0.0)
 
@@ -199,7 +206,7 @@ class KernelConv(nn.Module):
             p_nei_c[:, 2]
             * torch.linalg.cross(p_nei_c[:, 0], p_nei_c[:, 1], dim=-1)
         ).sum(-1)  # [M]
-        s = self.p_support[:, self.perms, :]  # [L, P, 4, 3]
+        s = take_rows(self.p_support, self.perms, 1)  # [L, P, 4, 3]
         det_sup = (
             s[:, :, 2] * torch.linalg.cross(s[:, :, 0], s[:, :, 1], dim=-1)
         ).sum(-1)  # [L, P]
@@ -268,10 +275,10 @@ class KernelSetConv(nn.Module):
         n = x.shape[0]
         inputs = [
             dict(
-                x_focal=x[b.focal_index],
-                p_focal=p[b.focal_index],
-                x_nei=x[b.nei_index],
-                p_nei=p[b.nei_index],
+                x_focal=take_rows(x, b.focal_index),
+                p_focal=take_rows(p, b.focal_index),
+                x_nei=take_rows(x, b.nei_index),
+                p_nei=take_rows(p, b.nei_index),
                 e_nei=b.nei_edge_attr,
                 mask=b.mask,
                 is_last_layer=is_last_layer,
@@ -404,7 +411,7 @@ class MolKGNNNet(nn.Module):
         self.graph_embedding_lin1 = TorchLinear(
             self.gnn.out_dim, graph_embedding_dim, generator=generator
         )
-        self.dropout = nn.Dropout(drop_ratio)
+        self.dropout = Dropout(drop_ratio)
         self.graph_embedding_lin2 = TorchLinear(
             graph_embedding_dim, graph_embedding_dim, generator=generator
         )

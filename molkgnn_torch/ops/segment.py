@@ -5,11 +5,25 @@ boolean masks; padded entries contribute zero. The sums go through
 ``index_add_``, which on CUDA uses atomics: the summation order, and so the
 last bits of a sum of two or more terms, can change from run to run. A
 one-term sum is exact.
+
+Gathers go through ``take_rows`` (``index_select``), whose gradient is an
+``index_add_``. Advanced indexing (``t[idx]``) computes the same values,
+but its gradient on CUDA sorts the indices first (``index_put_`` with
+accumulate): with every node gathered many times that backward took 250 of
+285 ms of device time in a flagship train step at batch 1024 on an NVIDIA
+H100 80GB HBM3 at 700 W (``chip_smoke.py``, phase 5; PERF.md).
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def take_rows(t: torch.Tensor, idx: torch.Tensor, dim: int = 0):
+    """``t`` gathered along ``dim`` at ``idx`` of any shape:
+    ``t.shape[:dim] + idx.shape + t.shape[dim + 1:]``."""
+    out = t.index_select(dim, idx.reshape(-1))
+    return out.reshape(t.shape[:dim] + idx.shape + t.shape[dim + 1:])
 
 
 def segment_sum_nodes(
@@ -37,7 +51,9 @@ def gather_scatter_add(
 ) -> torch.Tensor:
     """Message passing h'_i = sum_{(j->i) in E} values_j (sum aggregation):
     gather at edge sources, segment-sum at destinations."""
-    return segment_sum_nodes(values[src], dst, num_nodes, mask=edge_mask)
+    return segment_sum_nodes(
+        take_rows(values, src), dst, num_nodes, mask=edge_mask
+    )
 
 
 def global_add_pool(

@@ -14,7 +14,15 @@ B into scratch for it). A wrapper takes the plain PyTorch version
 tensors it launches the kernel or raises. Each wrapper counts its kernel
 launches in its ``launches`` attribute.
 
-Forward only: the scores are not differentiable through the kernel.
+Gradients: when autograd records (grad enabled and an input requires grad),
+both wrappers go through one ``torch.autograd.Function`` over G groups,
+``_SupportScore``. Its backward is the JAX custom VJP
+(``pallas_kernels.py:251-268``) in plain torch: the gradient flows only
+through the chosen permutation: one scatter of the output gradient to it
+and two products per group. The JAX backward is XLA, not Pallas, so it has
+no kernel of its own here either.
+Without autograd (``torch.no_grad``/``inference_mode``) the wrappers call
+the forward directly and the Function costs nothing.
 """
 
 from __future__ import annotations
@@ -203,12 +211,76 @@ def kernel_facts() -> list[dict]:
     return [dict(zip(FACT_NAMES, out[t * n:(t + 1) * n])) for t in range(4)]
 
 
+def _scores(wrapper, a_list, b_list):
+    """[(best, idx)] per group: the plain version on the CPU, one kernel
+    launch for CUDA tensors, counted in ``wrapper.launches``."""
+    if _device_of([*a_list, *b_list]).type == "cpu":
+        return [support_score_plain(a, b) for a, b in zip(a_list, b_list)]
+    outs = _launch(list(a_list), list(b_list))
+    wrapper.launches += 1
+    return outs
+
+
+class _SupportScore(torch.autograd.Function):
+    """The scorer over G groups, differentiable in every a and b.
+
+    ``apply(wrapper, g, *a_list, *b_list)`` returns ``(*bests, *idxs)``;
+    ``wrapper`` is the public function whose ``launches`` count the kernel's
+    launches. The idxs are not differentiable. Saved for backward: a, b and
+    idx of every group; on the card the outputs are views of the launch's
+    buffers, and the float one (outputs and packed-B scratch) is not saved,
+    so it is freed with the last view of a ``best``.
+
+    Backward, per group: the output gradient g [M, L] is scattered to the
+    chosen permutation, gp[m, idx[m, l], l] = g[m, l] (zero elsewhere), then
+    da = sum_{p,l} gp[m,p,l] b[p,k,l] and db[p] = a^T gp[:, p].
+    """
+
+    @staticmethod
+    def forward(ctx, wrapper, g: int, *ab):
+        a_list, b_list = ab[:g], ab[g:]
+        outs = _scores(wrapper, a_list, b_list)
+        idxs = [idx for _, idx in outs]
+        ctx.mark_non_differentiable(*idxs)
+        ctx.save_for_backward(*a_list, *b_list, *idxs)
+        ctx.groups = g
+        return (*[best for best, _ in outs], *idxs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        g = ctx.groups
+        saved = ctx.saved_tensors
+        need_a = ctx.needs_input_grad[2:2 + g]
+        need_b = ctx.needs_input_grad[2 + g:]
+        das, dbs = [], []
+        for i in range(g):
+            a, b, idx = saved[i], saved[g + i], saved[2 * g + i]
+            m, l = idx.shape
+            gp = grads[i].new_zeros(m, b.shape[0], l).scatter_(
+                1, idx.long().unsqueeze(1), grads[i].unsqueeze(1)
+            )  # [M, P, L]
+            das.append(torch.einsum("mpl,pkl->mk", gp, b) if need_a[i]
+                       else None)
+            dbs.append(torch.einsum("mk,mpl->pkl", a, gp) if need_b[i]
+                       else None)
+        return (None, None, *das, *dbs)
+
+
+def _run(wrapper, a_list, b_list):
+    """[(best, idx)] per group, through ``_SupportScore`` when autograd
+    records, else straight to the forward."""
+    if torch.is_grad_enabled() and any(
+        t.requires_grad for t in (*a_list, *b_list)
+    ):
+        g = len(a_list)
+        flat = _SupportScore.apply(wrapper, g, *a_list, *b_list)
+        return list(zip(flat[:g], flat[g:]))
+    return _scores(wrapper, a_list, b_list)
+
+
 def fused_support_score(a: torch.Tensor, b: torch.Tensor):
     """Score one bucket: a [M, K], b [P, K, L] -> (best [M, L], idx [M, L])."""
-    if _device_of([a, b]).type == "cpu":
-        return support_score_plain(a, b)
-    ((best, idx),) = _launch([a], [b])
-    fused_support_score.launches += 1
+    ((best, idx),) = _run(fused_support_score, [a], [b])
     return best, idx
 
 
@@ -223,11 +295,7 @@ def grouped_support_score(a_list, b_list):
     """
     if len(a_list) != len(b_list):
         raise ValueError("a_list and b_list differ in length")
-    if _device_of([*a_list, *b_list]).type == "cpu":
-        return [support_score_plain(a, b) for a, b in zip(a_list, b_list)]
-    outs = _launch(list(a_list), list(b_list))
-    grouped_support_score.launches += 1
-    return outs
+    return _run(grouped_support_score, list(a_list), list(b_list))
 
 
 grouped_support_score.launches = 0

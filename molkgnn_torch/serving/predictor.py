@@ -20,17 +20,7 @@ from torch import nn
 
 from molkgnn_torch.graphs.batch import BatchSpec, batch_graphs
 from molkgnn_torch.graphs.molgraph import MolGraph
-
-
-def sigmoid(x: np.ndarray) -> np.ndarray:
-    """Numerically stable two-branch sigmoid (exp only sees x <= 0)."""
-    x = np.asarray(x, dtype=np.float64)
-    out = np.empty_like(x)
-    pos = x >= 0
-    out[pos] = 1.0 / (1.0 + np.exp(-x[pos]))
-    ex = np.exp(x[~pos])
-    out[~pos] = ex / (1.0 + ex)
-    return out
+from molkgnn_torch.training.metrics import sigmoid
 
 
 def resolve_device(device: Optional[str | torch.device]) -> torch.device:

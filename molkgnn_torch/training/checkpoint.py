@@ -1,4 +1,9 @@
-"""Weight bridge from the JAX package's variables to the port's state_dict.
+"""Checkpoint files of the port, and the weight bridge from the JAX package.
+
+``save_checkpoint``/``load_checkpoint`` write and read the port's own
+checkpoint files: ``torch.save`` of a payload of tensors and plain values
+(moved to the CPU), at ``path + ".pt"``, read back with
+``weights_only=True``.
 
 ``from_jax_variables`` takes a ``GNNModel(MolKGNNNet)`` variable tree of the
 JAX package (``{'params': ..., 'batch_stats': ...}``, leaves as numpy
@@ -16,10 +21,36 @@ reference PyTorch Lightning checkpoint. It is the inverse of the key map in
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
+
+SUFFIX = ".pt"
+
+
+def _to_cpu(obj: Any) -> Any:
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    return obj
+
+
+def save_checkpoint(path: str, payload: Dict[str, Any]) -> None:
+    """Write ``payload`` (tensors on any device, dicts, plain values) to
+    ``path + ".pt"``, through a temporary file so that a reader never sees
+    half a file."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = f"{path}{SUFFIX}.tmp{os.getpid()}"
+    torch.save(_to_cpu(payload), tmp)
+    os.replace(tmp, path + SUFFIX)
+
+
+def load_checkpoint(path: str) -> Dict[str, Any]:
+    """The payload of ``save_checkpoint(path, ...)``, tensors on the CPU."""
+    return torch.load(path + SUFFIX, map_location="cpu", weights_only=True)
 
 
 def _flatten(tree: Any, prefix: Tuple[str, ...] = ()):

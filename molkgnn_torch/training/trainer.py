@@ -1,0 +1,502 @@
+"""Training harness on one device: train step, epoch loop, checkpoints.
+
+Port of ``molkgnn_tpu/training/trainer.py`` (its single-device paths):
+
+  * one optimizer step per batch, eager: train-mode forward (BatchNorm
+    statistics update, dropout from the Trainer's generator), loss,
+    backward, AdamW with the no-decay partition at the schedule's learning
+    rate (``optim.py``, ``schedule.py``);
+  * the batches come from the device-resident dataset (``use_device_data``,
+    the default): the host draws the epoch's oversampled graph ids and the
+    batch is assembled on the device (``graphs/device_pack.py``); or from
+    the host loader (``GraphLoader``) when ``use_device_data=False``;
+  * one readback of the epoch's losses, then validation (and optionally the
+    train split in eval mode, reported with a ``_no_dropout`` suffix);
+  * best checkpoints per monitored metric plus ``last``, kept in memory and
+    optionally written to ``checkpoint_dir``; ``test`` evaluates each and
+    writes ``test_result.log`` and ``test_sample_scores_{tag}.log``;
+  * full-state ``save_state``/``load_state``, and with ``autosave_path``
+    an autosave after every epoch, resume, and a SIGTERM/SIGINT handler
+    that finishes the epoch, autosaves and returns.
+
+The step counter ``step`` counts every train step. ``updates`` counts the
+updates applied: Adam's count and the schedule's position. With
+``skip_nonfinite_updates`` a step whose gradients are not all finite
+applies no update, as the JAX package's step reverts its whole optimizer
+state (optax's step counts included): only ``step`` advances. BatchNorm
+statistics are taken from that step all the same, as there.
+
+The Trainer runs on the card unless ``device="cpu"`` is passed, and raises
+without CUDA.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import signal
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from molkgnn_torch.data.dataset import Dataset, GraphLoader, epoch_order
+from molkgnn_torch.graphs.batch import BatchSpec, GraphBatch
+from molkgnn_torch.graphs.device_pack import (
+    DeviceDataset,
+    gather_batch,
+    pad_ids,
+)
+from molkgnn_torch.graphs.packed import PackedGraphs
+from molkgnn_torch.models.common import Dropout
+from molkgnn_torch.serving.predictor import resolve_device
+from molkgnn_torch.training.checkpoint import (
+    SUFFIX,
+    load_checkpoint,
+    save_checkpoint,
+)
+from molkgnn_torch.training.metrics import compute_metrics
+from molkgnn_torch.training.model import LOSSES
+from molkgnn_torch.training.optim import (
+    clip_by_global_norm,
+    fill_missing_grads,
+    grads_finite,
+    make_optimizer,
+)
+from molkgnn_torch.training.schedule import polynomial_warmup_decay
+
+STATE = ".state"  # save_state(path) writes path + STATE + SUFFIX
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    batch_size: int = 16
+    max_epochs: int = 20
+    peak_lr: float = 5e-3
+    end_lr: float = 1e-10
+    warmup_iterations: int = 300
+    weight_decay: float = 1e-3
+    seed: int = 42
+    oversample: bool = True
+    train_metric: bool = False
+    monitors: tuple = ("logAUC_0.001_0.1", "AUC", "loss")
+    log_dir: str = "logs"
+    checkpoint_dir: Optional[str] = None
+    tot_iterations: Optional[int] = None
+    progress: bool = True
+    # Write each epoch's validation predictions to
+    # log_dir/valid_predictions/epoch_N.
+    record_valid_pred: bool = False
+    grad_clip_norm: Optional[float] = None
+    skip_nonfinite_updates: bool = False
+    # Keep the flat-packed dataset on the device and assemble batches there
+    # from the sampled ids; False packs each batch on the host.
+    use_device_data: bool = True
+    autosave_path: Optional[str] = None
+
+    def resolve_tot_iterations(self, num_train: int) -> int:
+        if self.tot_iterations is not None:
+            return self.tot_iterations
+        # ceil(train / batch) * max_epochs + 2, as the reference derives it
+        per_epoch = -(-num_train // self.batch_size)
+        return per_epoch * self.max_epochs + 2
+
+
+class Trainer:
+    def __init__(
+        self,
+        model: nn.Module,
+        dataset: Dataset,
+        spec: BatchSpec,
+        config: TrainConfig,
+        device: Optional[str | torch.device] = None,
+        monitor=None,
+    ):
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            # Full fp32 products: the permutation argmax would move with
+            # TF32's lost digits.
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        self.model = model.to(self.device)
+        self.dataset = dataset
+        self.spec = spec
+        self.config = config
+        self.monitor = monitor
+        self.loss_fn = LOSSES[dataset.loss_name]
+        self.history: List[Dict[str, float]] = []
+        self.best: Dict[str, float] = {}
+        self.step_losses: List[float] = []
+        self._ckpts: Dict[str, dict] = {}
+
+        train_ids = np.asarray(dataset.split["train"])
+        self.schedule = polynomial_warmup_decay(
+            peak_lr=config.peak_lr,
+            end_lr=config.end_lr,
+            warmup_iterations=config.warmup_iterations,
+            tot_iterations=config.resolve_tot_iterations(len(train_ids)),
+        )
+        self.optimizer = make_optimizer(
+            self.model, weight_decay=config.weight_decay
+        )
+        self._params = [
+            p for g in self.optimizer.param_groups for p in g["params"]
+        ]
+        self.step = 0
+        self.updates = 0
+        # The run's two random streams, both from config.seed: dropout
+        # masks (on the device) and the sampled graph ids (on the host).
+        self.dropout_rng = torch.Generator(device=self.device)
+        self.dropout_rng.manual_seed(config.seed)
+        for m in self.model.modules():
+            if isinstance(m, Dropout):
+                m.generator = self.dropout_rng
+        self.id_rng = np.random.default_rng(config.seed)
+        self._train_ids = train_ids
+        self._train_labels = np.array([dataset.graphs[i].y for i in train_ids])
+        self._device_data = None
+        if config.use_device_data:
+            self._device_data = DeviceDataset.from_packed(
+                PackedGraphs.from_graphs(dataset.graphs), self.device
+            )
+
+    # ------------------------------------------------------------------
+    def _loss(self, batch: GraphBatch) -> torch.Tensor:
+        """Train-mode forward and loss, gradients cleared."""
+        self.model.train()
+        self.optimizer.zero_grad(set_to_none=True)
+        pred, _ = self.model(batch)
+        return self.loss_fn(pred, batch.y, batch.graph_mask)
+
+    def _update(self) -> None:
+        """Apply one update from the gradients in place (see module doc)."""
+        fill_missing_grads(self._params)
+        if self.config.skip_nonfinite_updates and not bool(
+            grads_finite(self._params)
+        ):
+            return
+        if self.config.grad_clip_norm is not None:
+            clip_by_global_norm(self._params, self.config.grad_clip_norm)
+        lr = self.schedule(self.updates)
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+        self.optimizer.step()
+        self.updates += 1
+
+    def _step(self, batch: GraphBatch) -> torch.Tensor:
+        """One train step; returns the loss, left on the device."""
+        loss = self._loss(batch)
+        loss.backward()
+        self._update()
+        self.step += 1
+        return loss.detach()
+
+    def _step_ids(self, ids: np.ndarray) -> torch.Tensor:
+        """One train step on the batch of graph ids [B] (-1 padded),
+        assembled on the device."""
+        ids_dev = torch.as_tensor(ids, device=self.device)
+        return self._step(gather_batch(self._device_data, ids_dev, self.spec))
+
+    def _epoch_id_batches(self):
+        """The epoch's sampled train ids, batch by batch, -1 padded: the
+        loader's oversampling (or shuffle) over global graph ids."""
+        cfg = self.config
+        order = epoch_order(
+            self.id_rng, self._train_labels, cfg.oversample, shuffle=True
+        )
+        sampled = self._train_ids[order]
+        for start in range(0, len(sampled), cfg.batch_size):
+            yield pad_ids(sampled[start : start + cfg.batch_size],
+                          cfg.batch_size)
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def _predict_ids(self, ids: np.ndarray):
+        """(labels, predictions) of the graphs ``ids``, assembled on the
+        device in batches; one copy of the ids to the device and one
+        readback of the predictions."""
+        bs = self.config.batch_size
+        ids = np.asarray(ids)
+        idm = np.stack(
+            [pad_ids(ids[s : s + bs], bs) for s in range(0, len(ids), bs)]
+        )
+        self.model.eval()
+        preds = [
+            self.model(gather_batch(self._device_data, row, self.spec))[0]
+            for row in torch.as_tensor(idm, device=self.device)
+        ]
+        flat = torch.cat(preds).cpu().numpy()
+        true = np.array([self.dataset.graphs[i].y for i in ids], np.float32)
+        return true, flat[(idm >= 0).reshape(-1)]
+
+    @torch.no_grad()
+    def _predict(self, graphs):
+        """(labels, predictions) of ``graphs``, packed on the host; one
+        readback of the predictions."""
+        loader = GraphLoader(graphs, self.spec, self.config.batch_size)
+        self.model.eval()
+        preds, masks, trues = [], [], []
+        for batch in loader:
+            preds.append(self.model(batch.to(self.device))[0])
+            masks.append(batch.graph_mask.numpy())
+            trues.append(batch.y.numpy())
+        all_pred = torch.cat(preds).cpu().numpy()
+        mask = np.concatenate(masks)
+        return np.concatenate(trues)[mask], all_pred[mask]
+
+    def _predictions(self, part: str):
+        if self._device_data is not None:
+            return self._predict_ids(self.dataset.split[part])
+        return self._predict(self.dataset.subset(part))
+
+    def evaluate(self, part: str = "valid") -> Dict[str, float]:
+        true_y, pred_y = self._predictions(part)
+        results = compute_metrics(self.dataset.metrics, true_y, pred_y)
+        pred = torch.from_numpy(pred_y)
+        results["loss"] = float(
+            self.loss_fn(
+                pred,
+                torch.from_numpy(true_y),
+                torch.ones(pred.shape, dtype=torch.bool),
+            )
+        )
+        return results
+
+    # ------------------------------------------------------------------
+    def fit(self) -> List[Dict[str, float]]:
+        """Train for max_epochs. With ``config.autosave_path`` set, resume
+        from its autosave where there is one (the epochs done are not run
+        again), autosave after every epoch, and turn SIGTERM/SIGINT into
+        finish the epoch, autosave, return."""
+        cfg = self.config
+        start_epoch = 0
+        if cfg.autosave_path and os.path.exists(
+            cfg.autosave_path + STATE + SUFFIX
+        ):
+            self.load_state(cfg.autosave_path)
+            hpath = cfg.autosave_path + ".history.json"
+            if os.path.exists(hpath):
+                with open(hpath) as f:
+                    self.history = json.load(f)
+            start_epoch = len(self.history)
+        stop = {"flag": False}
+        old_handlers = {}
+        if cfg.autosave_path:
+            def _request_stop(signum, frame):
+                stop["flag"] = True
+
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                try:
+                    old_handlers[sig] = signal.signal(sig, _request_stop)
+                except ValueError:
+                    pass  # not the main thread; signals handled elsewhere
+        try:
+            return self._fit_loop(start_epoch, stop)
+        finally:
+            for sig, h in old_handlers.items():
+                signal.signal(sig, h)
+
+    def _fit_loop(self, start_epoch, stop) -> List[Dict[str, float]]:
+        cfg = self.config
+        os.makedirs(cfg.log_dir, exist_ok=True)
+        loader = None
+        if self._device_data is None:
+            loader = GraphLoader(
+                self.dataset.subset("train"),
+                self.spec,
+                cfg.batch_size,
+                shuffle=not cfg.oversample,
+                oversample=cfg.oversample,
+                seed=self.id_rng,
+            )
+        for epoch in range(start_epoch, cfg.max_epochs):
+            t0 = time.time()
+            if loader is None:
+                losses = [self._step_ids(ids)
+                          for ids in self._epoch_id_batches()]
+            else:
+                losses = [self._step(b.to(self.device)) for b in loader]
+            if not losses:
+                raise RuntimeError("fit(): the epoch had no train step")
+            t_dispatch = time.time()
+            # The epoch's one readback.
+            step_losses = torch.stack(losses).cpu()
+            train_loss = float(step_losses.mean())
+            self.step_losses.extend(step_losses.tolist())
+            t_readback = time.time()
+
+            results = self.evaluate("valid")
+            if cfg.record_valid_pred:
+                true_y, pred_y = self._predictions("valid")
+                pred_dir = os.path.join(cfg.log_dir, "valid_predictions")
+                os.makedirs(pred_dir, exist_ok=True)
+                with open(os.path.join(pred_dir, f"epoch_{epoch}"), "w") as f:
+                    for pv, tv in zip(pred_y, true_y):
+                        f.write(f"{pv},{tv}\n")
+            if cfg.train_metric:
+                for k, v in self.evaluate("train").items():
+                    results[f"{k}_no_dropout"] = v
+            results["train_loss"] = train_loss
+            results["epoch"] = epoch
+            results["epoch_time_s"] = time.time() - t0
+            # Wall-time split: launching the epoch's steps, the loss
+            # readback that waits for them, and evaluation.
+            results["train_dispatch_time_s"] = t_dispatch - t0
+            results["train_readback_time_s"] = t_readback - t_dispatch
+            results["eval_time_s"] = time.time() - t_readback
+            self.history.append(results)
+            if self.monitor is not None:
+                self.monitor.on_epoch_end(epoch, results)
+            self._update_checkpoints(results)
+            if cfg.progress:
+                shown = {
+                    k: round(v, 4)
+                    for k, v in results.items()
+                    if isinstance(v, float)
+                }
+                print(f"epoch {epoch}: {shown}", flush=True)
+            if cfg.autosave_path:
+                self.save_state(cfg.autosave_path)
+                with open(cfg.autosave_path + ".history.json", "w") as f:
+                    json.dump(self.history, f)
+            if stop["flag"]:
+                if cfg.progress:
+                    print(
+                        f"fit: stop signal received; autosaved after "
+                        f"epoch {epoch}, returning early",
+                        flush=True,
+                    )
+                break
+        self._save_checkpoint("last")
+        with open(os.path.join(cfg.log_dir, "history.json"), "w") as f:
+            json.dump(self.history, f, indent=1)
+        return self.history
+
+    # ------------------------------------------------------------------
+    def _update_checkpoints(self, results: Dict[str, float]):
+        for monitor in self.config.monitors:
+            if monitor not in results:
+                continue
+            value = results[monitor]
+            better = (
+                value < self.best.get(monitor, np.inf)
+                if monitor == "loss"
+                else value > self.best.get(monitor, -np.inf)
+            )
+            if better:
+                self.best[monitor] = value
+                self._save_checkpoint(f"best_{monitor}")
+
+    def _save_checkpoint(self, tag: str):
+        """Keep the weights and BatchNorm statistics under ``tag`` (on the
+        device), and write them to ``checkpoint_dir/{tag}.pt`` if set."""
+        payload = {
+            "step": self.step,
+            "model": {
+                k: v.detach().clone()
+                for k, v in self.model.state_dict().items()
+            },
+        }
+        self._ckpts[tag] = payload
+        if self.config.checkpoint_dir:
+            save_checkpoint(
+                os.path.join(self.config.checkpoint_dir, tag), payload
+            )
+
+    def load_checkpoint_tag(self, tag: str):
+        self.model.load_state_dict(self._ckpts[tag]["model"])
+
+    # ------------------------------------------------------------------
+    def save_state(self, path: str) -> None:
+        """Full state for resume, at ``path + ".state.pt"``: weights and
+        statistics, optimizer, both random streams, step and update counts,
+        epochs done, best-metric table."""
+        save_checkpoint(path + STATE, {
+            "model": self.model.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "dropout_rng": self.dropout_rng.get_state(),
+            "id_rng": self.id_rng.bit_generator.state,
+            "step": self.step,
+            "updates": self.updates,
+            "epochs_done": len(self.history),
+            "best": dict(self.best),
+        })
+
+    def load_state(self, path: str) -> None:
+        ck = load_checkpoint(path + STATE)
+        self.model.load_state_dict(ck["model"])
+        self.optimizer.load_state_dict(ck["optimizer"])
+        self.dropout_rng.set_state(ck["dropout_rng"])
+        self.id_rng.bit_generator.state = ck["id_rng"]
+        self.step = ck["step"]
+        self.updates = ck["updates"]
+        self.best = {k: float(v) for k, v in ck["best"].items()}
+
+    def save_kernels(self, out_dir: str):
+        """Write the first layer's learned kernels to ``kernels.npz``, keyed
+        ``kernelconv{d}/{name}`` as the JAX package keys them."""
+        layers = getattr(getattr(self.model.gnn_model, "gnn", None),
+                         "layers", None)
+        if not layers:
+            raise ValueError("save_kernels: model has no kgnn layer 0")
+        os.makedirs(out_dir, exist_ok=True)
+        flat = {
+            f"kernelconv{d}/{name}": p.detach().cpu().numpy()
+            for d, conv in enumerate(layers[0].trainable_kernelconv_set, 1)
+            for name, p in conv.named_parameters()
+        }
+        np.savez(os.path.join(out_dir, "kernels.npz"), **flat)
+
+    @torch.no_grad()
+    def save_graph_embedding(self, out_dir: str, part: str = "test"):
+        """Write the split's graph embeddings and smiles."""
+        os.makedirs(out_dir, exist_ok=True)
+        graphs = self.dataset.subset(part)
+        self.model.eval()
+        embs, masks = [], []
+        for batch in GraphLoader(graphs, self.spec, self.config.batch_size):
+            embs.append(self.model(batch.to(self.device))[1])
+            masks.append(batch.graph_mask.numpy())
+        all_emb = torch.cat(embs).cpu().numpy()
+        np.save(
+            os.path.join(out_dir, "graph_embedding.npy"),
+            all_emb[np.concatenate(masks)],
+        )
+        with open(
+            os.path.join(out_dir, "smiles_for_graph_embedding.txt"), "w"
+        ) as f:
+            for g in graphs:
+                f.write(getattr(g, "smiles", "") + "\n")
+
+    def test(self) -> Dict[str, Dict[str, float]]:
+        """Evaluate ``last`` and each best checkpoint on the test split;
+        write ``test_sample_scores_{tag}.log`` and ``test_result.log``."""
+        cfg = self.config
+        out: Dict[str, Dict[str, float]] = {}
+        tags = [
+            t
+            for t in ["last"] + [f"best_{m}" for m in cfg.monitors]
+            if t in self._ckpts
+        ]
+        current = {
+            k: v.detach().clone() for k, v in self.model.state_dict().items()
+        }
+        os.makedirs(cfg.log_dir, exist_ok=True)
+        for tag in tags:
+            self.load_checkpoint_tag(tag)
+            true_y, pred_y = self._predictions("test")
+            out[tag] = compute_metrics(self.dataset.metrics, true_y, pred_y)
+            path = os.path.join(cfg.log_dir, f"test_sample_scores_{tag}.log")
+            with open(path, "w") as f:
+                for p, t in zip(pred_y, true_y):
+                    f.write(f"{p},{t}\n")
+        self.model.load_state_dict(current)
+        with open(os.path.join(cfg.log_dir, "test_result.log"), "w") as f:
+            for tag, metrics in out.items():
+                f.write(f"[{tag}]\n")
+                for k, v in metrics.items():
+                    f.write(f"{k}: {v}\n")
+        return out

@@ -161,3 +161,106 @@ def test_cuda_predictor_kernel_path_matches_plain_form():
     want = Predictor(model(False), sd, spec).predict_graphs(graphs)
     assert got.shape == (40,) and np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _plain_grads(a_list, b_list, g_list):
+    """Gradients of sum(best * g) by autograd through einsum, then max."""
+    a_list = [a.detach().requires_grad_() for a in a_list]
+    b_list = [b.detach().requires_grad_() for b in b_list]
+    loss = sum(
+        (torch.einsum("mk,pkl->mlp", a, b).max(dim=2).values * g).sum()
+        for a, b, g in zip(a_list, b_list, g_list)
+    )
+    loss.backward()
+    return [t.grad for t in a_list + b_list]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged", "permutations", "flagship_nhop"])
+def test_cuda_scorer_gradients_match_plain(case):
+    """The Function on the card (kernel forward, plain-torch backward)
+    against autograd through the plain version: max |diff| <= 1e-4. The
+    upstream gradient is zero where the top two scores are within 1e-4, so
+    that no entry rests on an argmax the two may break differently."""
+    _needs_card()
+    a_list, b_list = _unit_operands(np.random.default_rng(3), CASES[case])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    g_list = []
+    for a, b in zip(a_list, b_list):
+        sc = torch.einsum("mk,pkl->mlp", a.double(), b.double())
+        top2 = sc.topk(min(2, sc.shape[2]), dim=2).values
+        clear = (top2[..., 0] - top2[..., -1] > 1e-4) | (sc.shape[2] == 1)
+        g = torch.randn(sc.shape[:2], generator=gen, device="cuda")
+        g_list.append(torch.where(clear, g, 0.0))
+    ta = [a.clone().requires_grad_() for a in a_list]
+    tb = [b.clone().requires_grad_() for b in b_list]
+    before = ss.grouped_support_score.launches
+    outs = ss.grouped_support_score(ta, tb)
+    assert ss.grouped_support_score.launches == before + 1
+    sum((best * g).sum() for (best, _), g in zip(outs, g_list)).backward()
+    want = _plain_grads(a_list, b_list, g_list)
+    for got, w in zip([t.grad for t in ta + tb], want):
+        assert (got - w).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_gather_batch_matches_cpu():
+    """The batch assembled on the card equals the one assembled on the CPU
+    (and so the host packer's), bit for bit, with -1 padded ids."""
+    _needs_card()
+    import dataclasses
+
+    from molkgnn_torch.data.synthetic import random_dataset
+    from molkgnn_torch.graphs.batch import spec_for_graphs
+    from molkgnn_torch.graphs.device_pack import (
+        DeviceDataset,
+        gather_batch,
+        pad_ids,
+    )
+    from molkgnn_torch.graphs.packed import PackedGraphs
+
+    graphs = random_dataset(seed=4, num_graphs=64)
+    spec = spec_for_graphs(graphs, 16)
+    packed = PackedGraphs.from_graphs(graphs)
+    ids = torch.from_numpy(pad_ids(np.arange(3, 40, 3), 16))
+    want = gather_batch(DeviceDataset.from_packed(packed), ids, spec)
+    got = gather_batch(
+        DeviceDataset.from_packed(packed, "cuda"), ids.cuda(), spec
+    ).to("cpu")
+    for bucket_g, bucket_w in zip(got.buckets(), want.buckets()):
+        for f in dataclasses.fields(bucket_w):
+            assert torch.equal(getattr(bucket_g, f.name),
+                               getattr(bucket_w, f.name))
+    for f in dataclasses.fields(want):
+        if not f.name.startswith("deg"):
+            assert torch.equal(getattr(got, f.name), getattr(want, f.name))
+
+
+@pytest.mark.cuda
+def test_cuda_trainer_step():
+    """One Trainer step on the card (its default device): one grouped
+    launch per layer, a finite loss, and a support-score gradient for
+    x_support."""
+    _needs_card()
+    from molkgnn_torch.data.dataset import make_synthetic_dataset
+    from molkgnn_torch.graphs.batch import spec_for_graphs
+    from molkgnn_torch.models.kgnn import MolKGNNNet
+    from molkgnn_torch.training.model import GNNModel
+    from molkgnn_torch.training.trainer import TrainConfig, Trainer
+
+    ds = make_synthetic_dataset(seed=1, num_graphs=64)
+    gen = torch.Generator().manual_seed(0)
+    model = GNNModel(
+        MolKGNNNet(num_layers=2, use_kernel=True, generator=gen),
+        generator=gen,
+    )
+    trainer = Trainer(model, ds, spec_for_graphs(ds.graphs, 16),
+                      TrainConfig(batch_size=16, progress=False))
+    assert trainer.device.type == "cuda"
+    ids = next(trainer._epoch_id_batches())
+    before = ss.grouped_support_score.launches
+    loss = trainer._step_ids(ids)
+    assert ss.grouped_support_score.launches == before + 2
+    assert torch.isfinite(loss).item()
+    conv = model.gnn_model.gnn.layers[0].trainable_kernelconv_set[3]
+    assert conv.x_support.grad.abs().sum().item() > 0

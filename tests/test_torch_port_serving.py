@@ -88,13 +88,14 @@ def test_predictor_needs_cuda_unless_cpu_is_asked(monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """Importing the port loads neither jax/flax nor the JAX package, even
-    where they are importable: a finder that refuses them is installed
-    first, and sys.modules is checked afterwards."""
+    """Importing the port (every module) and chip_smoke.py loads neither
+    jax/flax/optax, nor scikit-learn, nor the JAX package, even where they
+    are importable: a finder that refuses them is installed first, and
+    sys.modules is checked afterwards."""
     code = """
 import sys
 
-BANNED = ("jax", "jaxlib", "flax", "molkgnn_tpu")
+BANNED = ("jax", "jaxlib", "flax", "optax", "sklearn", "molkgnn_tpu")
 
 def banned(name):
     return name.split(".")[0] in BANNED
@@ -114,6 +115,14 @@ import molkgnn_torch.models.kgnn
 import molkgnn_torch.serving.predictor
 import molkgnn_torch.training.checkpoint
 import molkgnn_torch.data.synthetic
+import molkgnn_torch.data.dataset
+import molkgnn_torch.graphs.packed
+import molkgnn_torch.graphs.device_pack
+import molkgnn_torch.training.metrics
+import molkgnn_torch.training.optim
+import molkgnn_torch.training.schedule
+import molkgnn_torch.training.trainer
+import chip_smoke
 loaded = sorted(m for m in sys.modules if banned(m))
 assert not loaded, loaded
 print("clean")
