@@ -48,10 +48,33 @@ Phases, in order; any failure exits non-zero and prints no result line:
               graphs/s of both forms (median step after the first) and a
               profile of one step. (e) A learning check on
               make_motif_dataset: the last epoch's train loss below the
-              first's.
+              first's. (f) Graph replay: 8 flagship steps with dropout 0.25
+              eager and through the captured CUDA graph (scan_steps=8) from
+              the same weights, ids and generator seeds, losses within 1e-5
+              relative and parameters within 1e-5; then train graphs/s of
+              the flagship at batch 1024 eager, with scan_steps=16, and
+              with scan_steps=16 and device_sampling (whole epochs of
+              steps, each synchronised once; the scorer's launches counted
+              as 4 a step, replays included), and CUDA events and a
+              profile (idle share) over a block of 16 replays.
+  6. cli:     the port's CLI, molkgnn_torch.cli.entry.main, end to end. An
+              AID-1798 SDF pair of mirror-image conformers of 8 chiral
+              scaffolds, written with the port's chemistry and labelled by
+              handedness (molkgnn_torch/tools/enantiomer.py), cut to 187
+              actives and 6,000 inactives (the tool runs the assay's full
+              61,645); its ingest and cache timed. (a) The CLI's flagship
+              defaults at batch 32 with --device_sampling --scan_steps 16
+              for 2 epochs: artifacts, finite metrics, scorer launches = 4
+              x (steps + evaluation batches), and --test on the same root
+              giving the fit's test predictions within 1e-4. (b) The
+              enantiomer configuration (1 layer, no dropout, peak 1e-2, 20
+              epochs): test logAUC[0.001,0.1] and AUC, --test as in (a),
+              and the train loss must fall. Then train graphs/s of that
+              configuration at batch 32, eager against graph-replayed.
 
-The last lines are the kernel record ({"kernels": [...]}), the card's
-name and power limit, and {"ok": true, "device": {...}}.
+The last lines are the records of the phases' numbers, the kernel record
+({"kernels": [...]}), the card's name and power limit, and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -79,6 +102,10 @@ FLAGSHIP_KERNELS = (10, 20, 30, 50)
 NUM_MOLECULES = 8192
 BATCH = 1024
 SEED = 0
+# Inactive records of phase 6's SDF pair (AID 1798 has 61,645): the cut
+# keeps the script within about 5 minutes; the full-count run is
+# `python -m molkgnn_torch.tools.enantiomer`, with the same builder.
+SMOKE_INACTIVES = 6000
 
 
 def log(*args):
@@ -582,20 +609,12 @@ class Smoke:
         lost on one side shows as a difference of that order."""
         import numpy as np
 
-        from molkgnn_torch.data.dataset import QSAR_METRICS, Dataset
-        from molkgnn_torch.data.synthetic import tie_free_molgraph
+        from molkgnn_torch.data.dataset import make_tie_free_dataset
         from molkgnn_torch.graphs.batch import spec_for_graphs
         from molkgnn_torch.training.trainer import TrainConfig, Trainer
 
-        rng = np.random.default_rng(SEED)
-        graphs = [tie_free_molgraph(rng) for _ in range(800)]
-        for g in graphs:
-            g.y = float(rng.random() < 0.5)
-        ds = Dataset("tie_free", graphs,
-                     {"train": np.arange(768), "valid": np.arange(768, 784),
-                      "test": np.arange(784, 800)},
-                     list(QSAR_METRICS), "bce_with_logits")
-        spec = spec_for_graphs(graphs, 256)
+        ds = make_tie_free_dataset(800, 768, seed=SEED)
+        spec = spec_for_graphs(ds.graphs, 256)
         cfg = TrainConfig(batch_size=256, warmup_iterations=3,
                           progress=False)
         trainers = {}
@@ -817,13 +836,349 @@ class Smoke:
         if not history[-1]["train_loss"] < history[0]["train_loss"]:
             raise AssertionError("the motif train loss did not fall")
 
+    def graphed_vs_eager(self):
+        """8 steps of the flagship with dropout 0.25 at batch 256 on
+        tie-free molecules, eager (scan_steps=1) and through the captured
+        graph (scan_steps=8: 2 eager warm-up steps, capture, 6 replays), from
+        the same weights, ids and generator seeds: losses within 1e-5
+        relative, parameters within 1e-5. An unregistered dropout generator
+        would replay one mask every step."""
+        import numpy as np
+
+        from molkgnn_torch.data.dataset import make_tie_free_dataset
+        from molkgnn_torch.graphs.batch import spec_for_graphs
+        from molkgnn_torch.training.trainer import TrainConfig, Trainer
+
+        torch = self.torch
+        ds = make_tie_free_dataset(2048 + 64, 2048, seed=SEED)
+        spec = spec_for_graphs(ds.graphs, 256)
+        trainers, losses = {}, {}
+        for k in (1, 8):
+            model = self.flagship(4, True, seed=SEED + 2, dropout=0.25)
+            trainers[k] = Trainer(model, ds, spec, TrainConfig(
+                batch_size=256, scan_steps=k, progress=False))
+            losses[k] = torch.stack(trainers[k]._epoch_steps()).cpu().numpy()
+        if trainers[8]._graph is None:
+            raise AssertionError("scan_steps=8 captured no graph")
+        rel = float(np.max(np.abs(losses[8] - losses[1]) / np.abs(losses[1])))
+        sd = trainers[1].model.state_dict()
+        diff = max((v - sd[k]).abs().max().item()
+                   for k, v in trainers[8].model.state_dict().items())
+        log(f"  graphed vs eager, 8 steps with dropout 0.25: losses "
+            f"{[round(float(x), 6) for x in losses[8]]}; max relative loss "
+            f"difference {rel:.3e}, max parameter difference {diff:.3e}")
+        if len(set(losses[8].tolist())) != 8:
+            raise AssertionError("graphed steps repeat a loss")
+        if rel > 1e-5 or diff > 1e-5:
+            raise AssertionError("graphed and eager steps differ by > 1e-5")
+        self.graphed_vs_eager_record = {"max_rel_loss_diff": rel,
+                                        "max_param_diff": diff}
+
+    def epoch_rates(self, trainers, order, what):
+        """Train graphs/s of each form over whole epochs of steps
+        (``Trainer._epoch_steps``, as fit() runs them), each run
+        synchronised once, forms in the given order; the scorer must launch
+        ``launches_per_step`` times a step, replays included. trainers:
+        {name: (trainer, launches_per_step)}."""
+        import numpy as np
+
+        from molkgnn_torch.ops import support_score as ss
+
+        torch = self.torch
+        for trainer, _ in trainers.values():  # warm: products, the capture
+            trainer._epoch_steps()
+        rates = {name: [] for name in trainers}
+        for name in order:
+            trainer, per_step = trainers[name]
+            ss.grouped_support_score.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses = trainer._epoch_steps()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launched = ss.grouped_support_score.launches
+            if launched != per_step * len(losses):
+                raise AssertionError(
+                    f"{what} {name}: {launched} scorer launches for "
+                    f"{len(losses)} steps, want {per_step} a step")
+            if not np.isfinite(torch.stack(losses).cpu().numpy()).all():
+                raise AssertionError(f"{what} {name}: a loss is not finite")
+            graphs = (len(losses) * trainer.config.batch_size
+                      if trainer.config.device_sampling
+                      else len(trainer._train_ids))
+            rates[name].append(graphs / secs)
+        card = self.torch.cuda.get_device_name(0)
+        for name, r in rates.items():
+            log(f"  {what} {name} on {card}: train "
+                f"{', '.join(f'{x:.1f}' for x in r)} graphs/s (whole "
+                f"epochs of steps, each synchronised once; scorer launches "
+                f"{trainers[name][1]} a step, replays counted)")
+        return rates
+
+    def replay_profile(self, trainer, what):
+        """One block of 16 replays of a captured step: the device time by
+        CUDA events, and from torch.profiler the device busy time over the
+        wall time (idle share) and the top kernels."""
+        from torch.profiler import ProfilerActivity, profile
+
+        torch = self.torch
+        for _ in range(2):
+            trainer._graph_step()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(16):
+            trainer._graph_step()
+        end.record()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        event_ms = start.elapsed_time(end)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(16):
+                trainer._graph_step()
+            torch.cuda.synchronize()
+            prof_wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = device_rows(prof)
+        busy = sum(r[0] for r in rows)
+        log(f"  {what}, 16 replays: {event_ms:.3f} ms by CUDA events in "
+            f"{wall_ms:.3f} ms wall ({event_ms / 16:.3f} ms a step; "
+            f"event time over wall {event_ms / wall_ms:.3f})")
+        record = {"event_ms": event_ms, "wall_ms": wall_ms}
+        if not rows:
+            log("  profile of the replays: no device time recorded "
+                "(not measured)")
+            return record
+        scorer = sum(r[0] for r in rows if KERNEL_NAME in r[2])
+        log(f"  profile of the replays: device busy {busy:.3f} ms of "
+            f"{prof_wall_ms:.3f} ms wall (idle share "
+            f"{1 - busy / prof_wall_ms:.3f}, profiler on); scorer "
+            f"{scorer:.3f} ms (share {scorer / busy:.3f})")
+        for ms, count, key in sorted(rows, reverse=True)[:8]:
+            log(f"    {ms:9.3f} ms  x{count:<5d} {key[:90]}")
+        record.update(busy_ms=busy, profiled_wall_ms=prof_wall_ms,
+                      idle_share=1 - busy / prof_wall_ms, scorer_ms=scorer)
+        return record
+
+    def graphed_throughput(self):
+        """The flagship at batch 1024 with scan_steps=16, with and without
+        device_sampling, beside the eager form: train graphs/s, launches,
+        and the profile of a block of replays."""
+        from molkgnn_torch.training.trainer import TrainConfig, Trainer
+
+        ds, spec = self.train_data
+        forms = {
+            "eager": {},
+            "graphed": {"scan_steps": 16},
+            "graphed+device_sampling": {"scan_steps": 16,
+                                        "device_sampling": True},
+        }
+        trainers = {
+            name: (Trainer(self.flagship(4, True), ds, spec, TrainConfig(
+                batch_size=BATCH, progress=False, **kw)), 4)
+            for name, kw in forms.items()
+        }
+        names = list(forms)
+        self.graphed_record = {"flagship_b1024": self.epoch_rates(
+            trainers, names + names[::-1], "flagship b1024")}
+        self.graphed_record["flagship_b1024_replays"] = self.replay_profile(
+            trainers["graphed+device_sampling"][0],
+            "flagship b1024 graphed+device_sampling")
+
     def phase_train(self, spec):
         self.grad_check(spec)
         self.kernel_vs_plain_training()
+        self.graphed_vs_eager()
         with tempfile.TemporaryDirectory() as tmp:
             self.main_train_path(tmp)
             self.train_throughput()
+            self.graphed_throughput()
             self.learning_check(tmp)
+
+    # ------------------------------------------------------------ phase 6
+    def phase_cli(self, tmp):
+        """The port's CLI end to end on an AID-1798 SDF pair of mirror-image
+        conformers (see ``write_enantiomer_sdfs``)."""
+        import numpy as np
+
+        from molkgnn_torch.cli import entry
+        from molkgnn_torch.data.qsar import load_qsar_dataset
+        from molkgnn_torch.ops import support_score as ss
+        from molkgnn_torch.tools.enantiomer import (
+            ENANTIOMER_ARGS,
+            JAX_CPU_RECORD,
+            N_ACTIVE,
+            SAMPLING_ARGS,
+            parse_test_result,
+            write_enantiomer_sdfs,
+        )
+
+        dataset_path = os.path.join(tmp, "dataset")
+        root = os.path.join(dataset_path, "qsar", "clean_sdf")
+        t0 = time.perf_counter()
+        n_act, n_inact = N_ACTIVE, SMOKE_INACTIVES
+        write_enantiomer_sdfs(os.path.join(root, "raw"), n_act, n_inact)
+        log(f"  wrote {n_act} + {n_inact} SDF records in "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        ds = load_qsar_dataset(root, "1798")
+        ingest_s = time.perf_counter() - t0
+        n_rec = n_act + n_inact
+        log(f"  ingest + cache (load_qsar_dataset, host): {ingest_s:.1f} s "
+            f"for {n_rec} records, {1e3 * ingest_s / n_rec:.3f} s per 1,000;"
+            f" split sizes { {k: len(v) for k, v in ds.split.items()} }")
+        cache = os.path.join(root, "processed", "kgnn-1798-3D-native.npz")
+        if not os.path.exists(cache):
+            raise AssertionError("the ingest cache was not written")
+        self.cli_record = {"records": n_rec, "ingest_s": ingest_s}
+        sizes = {k: len(v) for k, v in ds.split.items()}
+        common = ["--dataset_name", "1798", "--dataset_path", dataset_path,
+                  *SAMPLING_ARGS]
+
+        def run(name, layers, epochs, extra):
+            out = os.path.join(tmp, name)
+            ss.grouped_support_score.launches = 0
+            ss.fused_support_score.launches = 0
+            t0 = time.perf_counter()
+            rc = entry.main(common + ["--default_root_dir", out,
+                                      "--max_epochs", str(epochs), *extra])
+            secs = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"{name}: the CLI returned {rc}")
+            launches = ss.grouped_support_score.launches
+            logs = os.path.join(out, "logs")
+            tested = parse_test_result(os.path.join(logs, "test_result.log"))
+            steps = epochs * -(-sizes["train"] // 32)
+            eval_batches = (epochs * -(-sizes["valid"] // 32)
+                            + (len(tested) + 1) * -(-sizes["test"] // 32))
+            want = layers * (steps + eval_batches)
+            log(f"  {name}: CLI in {secs:.1f} s; {steps} steps, "
+                f"{eval_batches} evaluation batches (validation, "
+                f"{len(tested)} checkpoints on test, the embeddings); "
+                f"scorer launches {launches} (want {want}), fused "
+                f"{ss.fused_support_score.launches}")
+            if launches != want:
+                raise AssertionError(f"{name}: scorer launches {launches}, "
+                                     f"want {want}")
+            files = ["history.json", "test_result.log", "task_info.log",
+                     "kernels/kernels.npz", "graph_embedding.npy"] + [
+                f"test_sample_scores_{tag}.log" for tag in tested]
+            missing = [f for f in files
+                       if not os.path.exists(os.path.join(logs, f))]
+            missing += [f"checkpoints/{tag}.pt" for tag in tested
+                        if not os.path.exists(
+                            os.path.join(out, "checkpoints", f"{tag}.pt"))]
+            if missing:
+                raise AssertionError(f"{name}: missing {missing}")
+            with open(os.path.join(logs, "history.json")) as f:
+                history = json.load(f)
+            losses = [e["train_loss"] for e in history]
+            if len(history) != epochs or not np.isfinite(losses).all():
+                raise AssertionError(f"{name}: history {losses}")
+            for tag, m in tested.items():
+                if not all(np.isfinite(m[k]) for k in
+                           ("AUC", "logAUC_0.001_0.1", "logAUC_0.001_1")):
+                    raise AssertionError(f"{name} {tag}: metrics {m}")
+            log(f"  {name}: train loss by epoch "
+                f"{[round(x, 4) for x in losses]}; valid AUC "
+                f"{[round(e['AUC'], 4) for e in history]}; test [last] "
+                f"logAUC[0.001,0.1] {tested['last']['logAUC_0.001_0.1']:.4f}"
+                f", AUC {tested['last']['AUC']:.4f}")
+            return out, tested, losses, secs, launches
+
+        def retest(name, out, tested):
+            """--test on the run's root: the same tags, labels and, within
+            1e-4, the same test predictions (test_sample_scores_{tag}.log)
+            as the fit's. The metrics are reported, not held: sums by
+            atomics differ in their last bits from run to run, and
+            logAUC[0.001, 0.1] ranks a handful of top-scored molecules among
+            thousands of copies of 200 conformers, whose order a last-bit
+            change can swap."""
+            logs = os.path.join(out, "logs")
+
+            def scores():
+                return {tag: np.loadtxt(os.path.join(
+                    logs, f"test_sample_scores_{tag}.log"), delimiter=",")
+                    for tag in tested}
+
+            before = scores()
+            if entry.main(common + ["--default_root_dir", out,
+                                    "--test"]) != 0:
+                raise AssertionError(f"{name}: --test returned non-zero")
+            again = parse_test_result(os.path.join(logs, "test_result.log"))
+            after = scores()
+            if again.keys() != tested.keys():
+                raise AssertionError(f"{name}: --test tags {sorted(again)}")
+            pred_gap = max(float(np.abs(after[t][:, 0] - b[:, 0]).max())
+                           for t, b in before.items())
+            labels_equal = all(np.array_equal(after[t][:, 1], b[:, 1])
+                               for t, b in before.items())
+            gap = max(abs(again[t][k] - v) for t, m in tested.items()
+                      for k, v in m.items() if np.isfinite(v))
+            log(f"  {name} --test on the same root: tags {sorted(again)}; "
+                f"largest prediction difference {pred_gap:.3e}, largest "
+                f"metric difference {gap:.3e} from the fit's logs")
+            # Checked at the end of the phase, so that one run reports
+            # every number of the phase.
+            if not labels_equal or pred_gap > 1e-4:
+                problems.append(f"{name}: --test predictions differ")
+            return {"prediction_gap": pred_gap, "metric_gap": gap}
+
+        problems = []
+
+        out, tested, _, secs, launches = run("flagship", 4, 2, [])
+        self.cli_record["flagship"] = {
+            "seconds": secs, "launches": launches, "test": tested,
+            "retest": retest("flagship", out, tested)}
+        self.cli_launches = launches
+
+        out, tested, losses, secs, launches = run(
+            "enantiomer", 1, 20, ENANTIOMER_ARGS)
+        common += ENANTIOMER_ARGS
+        retested = retest("enantiomer", out, tested)
+        if not losses[-1] < losses[0]:
+            problems.append("the enantiomer train loss did not fall")
+        self.cli_record["enantiomer"] = {
+            "seconds": secs, "launches": launches, "test": tested,
+            "train_loss": losses, "retest": retested,
+            "jax_cpu_record": JAX_CPU_RECORD,
+        }
+        self.enantiomer_rates(ds)
+        if problems:
+            raise AssertionError("; ".join(problems))
+
+    def enantiomer_rates(self, ds):
+        """Train graphs/s of the enantiomer configuration at batch 32,
+        eager against graph-replayed, on the phase's dataset."""
+        from molkgnn_torch.graphs.batch import spec_for_graphs
+        from molkgnn_torch.models.kgnn import MolKGNNNet
+        from molkgnn_torch.training.model import GNNModel
+        from molkgnn_torch.training.trainer import TrainConfig, Trainer
+
+        spec = spec_for_graphs(ds.graphs, 32)
+
+        def trainer(**kw):
+            gen = self.torch.Generator().manual_seed(SEED)
+            model = GNNModel(MolKGNNNet(num_layers=1, use_kernel=True,
+                                        generator=gen),
+                             ffn_dropout_rate=0.0, generator=gen)
+            return Trainer(model, ds, spec, TrainConfig(
+                batch_size=32, peak_lr=1e-2, progress=False, **kw)), 1
+
+        trainers = {
+            "eager": trainer(),
+            "graphed+device_sampling": trainer(scan_steps=16,
+                                               device_sampling=True),
+        }
+        names = list(trainers)
+        self.graphed_record["enantiomer_b32"] = self.epoch_rates(
+            trainers, names + names[::-1], "enantiomer b32")
+        self.graphed_record["enantiomer_b32_replays"] = self.replay_profile(
+            trainers["graphed+device_sampling"][0],
+            "enantiomer b32 graphed+device_sampling")
 
     # ------------------------------------------------------------ record
     def kernel_record(self):
@@ -845,6 +1200,15 @@ class Smoke:
             "launches per optimizer step and per evaluation batch",
             "fused_support_score": "not on the training path",
         }
+        cli_paths = {
+            "grouped_support_score": "CLI: molkgnn_torch.cli.entry.main, "
+            "flagship on AID-1798 SDF files, --device_sampling --scan_steps "
+            "16, 4 launches per step (graph replays) and per evaluation "
+            "batch",
+            "fused_support_score": "not on the CLI's path",
+        }
+        cli_launches = {"grouped_support_score": self.cli_launches,
+                        "fused_support_score": 0}
         for name in ("grouped_support_score", "fused_support_score"):
             if name == "grouped_support_score":
                 (l0, s0, e0) = self.per_request[(name, "layer 0")]
@@ -872,6 +1236,8 @@ class Smoke:
                 "path": paths[name],
                 "train_launches": self.train_launches[name],
                 "train_path": train_paths[name],
+                "cli_launches": cli_launches[name],
+                "cli_path": cli_paths[name],
             })
             if name == "grouped_support_score":
                 entries[-1]["backward_ms_per_step"] = self.backward_step_ms
@@ -934,6 +1300,11 @@ def main() -> int:
         phase = "train"
         log("[5] training path")
         smoke.phase_train(spec)
+
+        phase = "cli"
+        log("[6] the CLI on an AID-1798 SDF pair")
+        with tempfile.TemporaryDirectory() as tmp:
+            smoke.phase_cli(tmp)
         record = smoke.kernel_record()
     except Exception:
         traceback.print_exc()
@@ -942,7 +1313,10 @@ def main() -> int:
 
     print(json.dumps({"throughput": smoke.throughput,
                       "train_throughput": smoke.train_throughput_record,
-                      "train_step_profile_ms": smoke.step_profile}),
+                      "train_step_profile_ms": smoke.step_profile,
+                      "graphed_vs_eager": smoke.graphed_vs_eager_record,
+                      "graphed": smoke.graphed_record,
+                      "cli": smoke.cli_record}),
           flush=True)
     print(json.dumps(record), flush=True)
     print(smi, flush=True)

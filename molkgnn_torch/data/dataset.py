@@ -1,7 +1,8 @@
 """Datasets, splits and the host-side loader.
 
-Port of ``molkgnn_tpu/data/dataset.py`` (the synthetic datasets, the
-oversampling weights and ``GraphLoader``), with the same numpy RNG streams:
+Port of ``molkgnn_tpu/data/dataset.py`` (the dataset names, the synthetic
+datasets, the oversampling weights and ``GraphLoader``; the QSAR and D4DCHP
+ingest is in ``qsar.py`` and ``d4dchp.py``), with the same numpy RNG streams:
 the same seed draws the same graphs, splits and batch ids. Oversampling
 with replacement follows WeightedRandomSampler: inverse class-count
 weights, ``len(graphs)`` draws an epoch.
@@ -14,10 +15,28 @@ from typing import Dict, Iterator, List, Sequence
 
 import numpy as np
 
-from molkgnn_torch.data.synthetic import random_dataset, random_molgraph
+from molkgnn_torch.data.synthetic import (
+    random_dataset,
+    random_molgraph,
+    tie_free_molgraph,
+)
 from molkgnn_torch.graphs.batch import BatchSpec, GraphBatch
 from molkgnn_torch.graphs.molgraph import MolGraph
 from molkgnn_torch.graphs.packed import PackedGraphs
+
+QSAR_DATASET_NAMES = (
+    "435008",
+    "1798",
+    "435034",
+    "1843",
+    "2258",
+    "463087",
+    "488997",
+    "2689",
+    "485290",
+    "9999",
+)
+D4DCHP_DATASET_NAMES = ("CHIRAL1", "DIFF5", "D4DCHP", "dummy")
 
 QSAR_METRICS = ["ppv", "logAUC_0.001_0.1", "logAUC_0.001_1", "f1_score", "AUC"]
 
@@ -98,6 +117,33 @@ def make_motif_dataset(
         name="synthetic_motif",
         graphs=graphs,
         split=_split(rng, num_graphs),
+        metrics=list(QSAR_METRICS),
+        loss_name="bce_with_logits",
+    )
+
+
+def make_tie_free_dataset(
+    n: int, n_train: int, seed: int = 0, active_fraction: float = 0.5
+) -> Dataset:
+    """``n`` tie-free molecules (``tie_free_molgraph``) with random 0/1
+    labels; the first ``n_train`` train, the rest split in two halves.
+
+    Runs compared with each other on the card use them: where neighbours
+    carry bitwise-equal features the permutation argmax follows the
+    summation order of ``index_add_``'s atomics, which changes from run to
+    run, and Adam's first steps turn such a flip into a parameter
+    difference of the learning rate's size.
+    """
+    rng = np.random.default_rng(seed)
+    graphs = [tie_free_molgraph(rng) for _ in range(n)]
+    for i, g in enumerate(graphs):
+        g.y, g.idx = float(rng.random() < active_fraction), i
+    half = n_train + (n - n_train) // 2
+    return Dataset(
+        name="tie_free",
+        graphs=graphs,
+        split={"train": np.arange(n_train), "valid": np.arange(n_train, half),
+               "test": np.arange(half, n)},
         metrics=list(QSAR_METRICS),
         loss_name="bce_with_logits",
     )

@@ -17,14 +17,18 @@ The padded concatenation of variable-length per-graph ranges:
 ``PackedGraphs.pack`` and ``batch_graphs``, bit for bit; ids padded with -1
 are masked graphs. Nothing here reads a value back to the host, and nothing
 checks capacities on the device: the caller's sampler honours the spec.
-The sampler on the device (``alias_sampler``/``sample_ids``) is not ported
-yet.
+
+The sampler on the device (``alias_sampler``/``sample_ids``) draws the
+oversampling distribution with an alias table: the table is built on the
+host in float64, bit-equal to the JAX package's; the draws use a
+``torch.Generator`` (Philox on the card), so they follow the same
+distribution as JAX's draws but not the same bits.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -188,3 +192,60 @@ def pad_ids(ids: np.ndarray, batch_size: int) -> np.ndarray:
     out = np.full((batch_size,), -1, np.int32)
     out[: len(ids)] = ids
     return out
+
+
+class AliasTable(NamedTuple):
+    """Walker alias table over sampler positions: a uniform draw into
+    bucket i keeps i with probability ``prob[i]``, else takes ``alias[i]``.
+    Alias probabilities are per-bucket values of order 1, so float32 holds
+    them to ~1e-7 relative at any n (a float32 cumulative distribution
+    would merge neighbouring positions near 1.0 at millions of rows)."""
+
+    prob: np.ndarray  # [n] float32
+    alias: np.ndarray  # [n] int32
+
+
+def alias_sampler(weights: np.ndarray) -> AliasTable:
+    """The alias table of unnormalized per-position ``weights`` (Vose's
+    O(n) algorithm in float64 on the host), bit-equal to
+    ``molkgnn_tpu.graphs.device_pack.alias_sampler``."""
+    w = np.asarray(weights, np.float64)
+    n = w.size
+    p = w / w.sum() * n
+    prob = np.ones(n, np.float32)
+    alias = np.arange(n, dtype=np.int32)
+    small = [i for i in range(n) if p[i] < 1.0]
+    large = [i for i in range(n) if p[i] >= 1.0]
+    while small and large:
+        s, l = small.pop(), large.pop()
+        prob[s] = p[s]
+        alias[s] = l
+        p[l] = (p[l] + p[s]) - 1.0
+        (small if p[l] < 1.0 else large).append(l)
+    # fp-drift leftovers on either worklist keep prob 1.0 (exact).
+    return AliasTable(prob, alias)
+
+
+def sample_ids(
+    generator: torch.Generator,
+    prob: torch.Tensor,
+    alias: torch.Tensor,
+    train_ids: torch.Tensor,
+    batch_size: int,
+) -> torch.Tensor:
+    """``batch_size`` i.i.d. weighted draws of ``train_ids`` (int32 [B]) on
+    the tensors' device, from ``generator``: i ~ U{0..n-1} and u ~ U[0, 1);
+    keep i if u < prob[i], else take alias[i]. P(position i) is its
+    normalized weight: the reference's WeightedRandomSampler with
+    replacement. No host readback; capturable in a CUDA graph."""
+    n = prob.shape[0]
+    device = prob.device
+    i = torch.randint(
+        0, n, (batch_size,), generator=generator, device=device
+    )
+    u = torch.rand(
+        (batch_size,), generator=generator, device=device,
+        dtype=torch.float32,
+    )
+    idx = torch.where(u < prob[i], i, alias[i].long())
+    return train_ids[idx]

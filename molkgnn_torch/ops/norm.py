@@ -35,7 +35,9 @@ class MaskedBatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         else:
             if mask is None:
-                count = x.new_tensor(float(x.shape[0]))
+                # A fill on the device: no host-to-device copy, so the
+                # branch can be captured in a CUDA graph.
+                count = x.new_full((), float(x.shape[0]))
                 mean = x.mean(dim=0)
                 var = ((x - mean) ** 2).mean(dim=0)
             else:

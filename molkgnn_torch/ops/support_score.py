@@ -12,7 +12,12 @@ buckets of a layer in one launch. Both launch the same kernel,
 B into scratch for it). A wrapper takes the plain PyTorch version
 (``support_score_plain``) only when its tensors lie on the CPU; for CUDA
 tensors it launches the kernel or raises. Each wrapper counts its kernel
-launches in its ``launches`` attribute.
+launches in its ``launches`` attribute. Inside a CUDA graph capture the
+wrapper records its launch and counts it as usual; the replays launch it.
+The ``Trainer`` that captures a train step takes the capture's count back
+(a capture runs nothing) and adds it at every replay
+(``training/trainer.py::Trainer._graph_step``), so that ``launches``
+counts the kernel's launches on the card.
 
 Gradients: when autograd records (grad enabled and an input requires grad),
 both wrappers go through one ``torch.autograd.Function`` over G groups,

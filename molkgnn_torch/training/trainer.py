@@ -2,14 +2,29 @@
 
 Port of ``molkgnn_tpu/training/trainer.py`` (its single-device paths):
 
-  * one optimizer step per batch, eager: train-mode forward (BatchNorm
+  * one optimizer step per batch: train-mode forward (BatchNorm
     statistics update, dropout from the Trainer's generator), loss,
     backward, AdamW with the no-decay partition at the schedule's learning
-    rate (``optim.py``, ``schedule.py``);
+    rate (``optim.py``, ``schedule.py``), with no host readback: the
+    learning rate, the update count and the non-finite skip live on the
+    device;
   * the batches come from the device-resident dataset (``use_device_data``,
     the default): the host draws the epoch's oversampled graph ids and the
-    batch is assembled on the device (``graphs/device_pack.py``); or from
-    the host loader (``GraphLoader``) when ``use_device_data=False``;
+    batch is assembled on the device (``graphs/device_pack.py``); with
+    ``device_sampling`` the ids are drawn on the device too, from an alias
+    table and a generator of their own, ``ceil(n_train / B)`` full batches
+    an epoch; or from the host loader (``GraphLoader``) when
+    ``use_device_data=False``;
+  * ``scan_steps = K > 1`` on the card: the first use captures one whole
+    train step (batch assembly from a static id buffer or the device
+    sampler, forward with the scorer kernel, loss, backward, gradient fill
+    and clip, skip, AdamW) as a CUDA graph, after ``GRAPH_WARMUP`` eager
+    steps on a side stream, which are real steps of the run. Each block of
+    K steps is then one copy of its ``[K, B]`` ids to the device and K
+    replays; the last ``steps % K`` batches are replayed one by one. The
+    steps, their order, dropout masks and updates are those of eager steps
+    (a replay consumes the generators' Philox offsets as the eager step
+    does). A failed capture raises. On the CPU, K eager steps;
   * one readback of the epoch's losses, then validation (and optionally the
     train split in eval mode, reported with a ``_no_dropout`` suffix);
   * best checkpoints per monitored metric plus ``last``, kept in memory and
@@ -28,6 +43,10 @@ statistics are taken from that step all the same, as there.
 
 The Trainer runs on the card unless ``device="cpu"`` is passed, and raises
 without CUDA.
+
+Loading state (``load_state``, checkpoints) copies into the existing
+parameters, buffers, optimizer tensors and generators in place, so a
+captured step stays valid and replays from the loaded state.
 """
 
 from __future__ import annotations
@@ -43,15 +62,26 @@ import numpy as np
 import torch
 from torch import nn
 
-from molkgnn_torch.data.dataset import Dataset, GraphLoader, epoch_order
+from molkgnn_torch.data.dataset import (
+    Dataset,
+    GraphLoader,
+    epoch_order,
+    oversampling_weights,
+)
 from molkgnn_torch.graphs.batch import BatchSpec, GraphBatch
 from molkgnn_torch.graphs.device_pack import (
     DeviceDataset,
+    alias_sampler,
     gather_batch,
     pad_ids,
+    sample_ids,
 )
 from molkgnn_torch.graphs.packed import PackedGraphs
 from molkgnn_torch.models.common import Dropout
+from molkgnn_torch.ops.support_score import (
+    fused_support_score,
+    grouped_support_score,
+)
 from molkgnn_torch.serving.predictor import resolve_device
 from molkgnn_torch.training.checkpoint import (
     SUFFIX,
@@ -66,9 +96,20 @@ from molkgnn_torch.training.optim import (
     grads_finite,
     make_optimizer,
 )
-from molkgnn_torch.training.schedule import polynomial_warmup_decay
+from molkgnn_torch.training.schedule import (
+    polynomial_warmup_decay,
+    polynomial_warmup_decay_tensor,
+)
 
 STATE = ".state"  # save_state(path) writes path + STATE + SUFFIX
+# Eager steps (real steps of the run, on a side stream) before a train step
+# is captured as a CUDA graph.
+GRAPH_WARMUP = 2
+# Salt of the device sampler's seed, so that its stream never meets the
+# dropout stream's (the JAX package folds the same salt into its key).
+SAMPLE_SALT = 0x5A17
+# The scorer wrappers whose ``launches`` a captured step's replays add to.
+SCORERS = (fused_support_score, grouped_support_score)
 
 
 @dataclasses.dataclass
@@ -95,6 +136,20 @@ class TrainConfig:
     # Keep the flat-packed dataset on the device and assemble batches there
     # from the sampled ids; False packs each batch on the host.
     use_device_data: bool = True
+    # Optimizer steps per fused block. On the card a train step is captured
+    # once as a CUDA graph and each block of K steps is K replays (see the
+    # module doc); on the CPU, K eager steps. The math is that of K eager
+    # steps.
+    scan_steps: int = 1
+    # The JAX package nests its K-step lax.scan as (K // chunk x chunk)
+    # when chunk divides K, to bound the compiled program for a remote
+    # compiler's capacity limit. A captured CUDA graph has no such limit:
+    # accepted (any int, as there) and changes nothing here.
+    scan_chunk: int = 0
+    # Draw the train ids on the device from the oversampling distribution
+    # (alias table, a generator of its own): no per-step host input.
+    # Requires use_device_data and oversample.
+    device_sampling: bool = False
     autosave_path: Optional[str] = None
 
     def resolve_tot_iterations(self, num_train: int) -> int:
@@ -133,28 +188,33 @@ class Trainer:
         self._ckpts: Dict[str, dict] = {}
 
         train_ids = np.asarray(dataset.split["train"])
-        self.schedule = polynomial_warmup_decay(
+        sched = dict(
             peak_lr=config.peak_lr,
             end_lr=config.end_lr,
             warmup_iterations=config.warmup_iterations,
             tot_iterations=config.resolve_tot_iterations(len(train_ids)),
         )
+        self.schedule = polynomial_warmup_decay(**sched)
+        self._lr = polynomial_warmup_decay_tensor(**sched)
         self.optimizer = make_optimizer(
             self.model, weight_decay=config.weight_decay
         )
-        self._params = [
-            p for g in self.optimizer.param_groups for p in g["params"]
-        ]
+        self._params = self.optimizer.params
         self.step = 0
-        self.updates = 0
-        # The run's two random streams, both from config.seed: dropout
-        # masks (on the device) and the sampled graph ids (on the host).
+        # The run's random streams, all from config.seed: dropout masks (on
+        # the device), the sampled graph ids (on the host) and, with
+        # device_sampling, the ids drawn on the device.
         self.dropout_rng = torch.Generator(device=self.device)
         self.dropout_rng.manual_seed(config.seed)
         for m in self.model.modules():
             if isinstance(m, Dropout):
                 m.generator = self.dropout_rng
         self.id_rng = np.random.default_rng(config.seed)
+        self.sample_rng = torch.Generator(device=self.device)
+        self.sample_rng.manual_seed(int(
+            np.random.SeedSequence([config.seed, SAMPLE_SALT])
+            .generate_state(1, np.uint64)[0]
+        ))
         self._train_ids = train_ids
         self._train_labels = np.array([dataset.graphs[i].y for i in train_ids])
         self._device_data = None
@@ -162,29 +222,56 @@ class Trainer:
             self._device_data = DeviceDataset.from_packed(
                 PackedGraphs.from_graphs(dataset.graphs), self.device
             )
+        self._sampler = None
+        if config.device_sampling:
+            if self._device_data is None:
+                raise ValueError(
+                    "device_sampling requires the device-data path "
+                    "(use_device_data=True)"
+                )
+            if not config.oversample:
+                raise ValueError(
+                    "device_sampling reproduces the oversampling "
+                    "(with-replacement) sampler; shuffle epochs stay on the "
+                    "host path"
+                )
+            table = alias_sampler(oversampling_weights(self._train_labels))
+            self._sampler = tuple(
+                torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                for a in (table.prob, table.alias,
+                          train_ids.astype(np.int32))
+            )
+        # The captured train step (scan_steps > 1 on the card): the graph,
+        # its static id input and loss output, the scorer launches one
+        # replay makes, and the eager steps run so far towards its warm-up.
+        self._graph = None
+        self._graph_ids = None
+        self._graph_loss = None
+        self._graph_launches = [0] * len(SCORERS)
+        self._graph_warm = 0
+
+    @property
+    def updates(self) -> int:
+        """Updates applied (reads the device's count back)."""
+        return int(self.optimizer.count)
 
     # ------------------------------------------------------------------
     def _loss(self, batch: GraphBatch) -> torch.Tensor:
-        """Train-mode forward and loss, gradients cleared."""
+        """Train-mode forward and loss, gradients zeroed in place."""
         self.model.train()
-        self.optimizer.zero_grad(set_to_none=True)
+        self.optimizer.zero_grad()
         pred, _ = self.model(batch)
         return self.loss_fn(pred, batch.y, batch.graph_mask)
 
     def _update(self) -> None:
-        """Apply one update from the gradients in place (see module doc)."""
+        """Apply one update from the gradients in place (see module doc),
+        with no host readback."""
         fill_missing_grads(self._params)
-        if self.config.skip_nonfinite_updates and not bool(
-            grads_finite(self._params)
-        ):
-            return
+        ok = (grads_finite(self._params)
+              if self.config.skip_nonfinite_updates else None)
         if self.config.grad_clip_norm is not None:
             clip_by_global_norm(self._params, self.config.grad_clip_norm)
-        lr = self.schedule(self.updates)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
-        self.optimizer.step()
-        self.updates += 1
+        self.optimizer.step(self._lr(self.optimizer.count), ok)
 
     def _step(self, batch: GraphBatch) -> torch.Tensor:
         """One train step; returns the loss, left on the device."""
@@ -199,6 +286,97 @@ class Trainer:
         assembled on the device."""
         ids_dev = torch.as_tensor(ids, device=self.device)
         return self._step(gather_batch(self._device_data, ids_dev, self.spec))
+
+    def _device_step(self) -> torch.Tensor:
+        """One train step with no host input and no host readback: ids
+        drawn on the device (device_sampling) or read from the static id
+        buffer. This is the step a CUDA graph captures."""
+        if self._sampler is not None:
+            prob, alias, train_ids = self._sampler
+            ids = sample_ids(self.sample_rng, prob, alias, train_ids,
+                             self.config.batch_size)
+        else:
+            ids = self._graph_ids
+        return self._step(gather_batch(self._device_data, ids, self.spec))
+
+    def _capture(self) -> None:
+        """Capture ``_device_step`` as a CUDA graph, with the Trainer's
+        generators registered so that every replay draws fresh masks and
+        ids. Raises if the capture fails; nothing falls back to eager."""
+        graph = torch.cuda.CUDAGraph()
+        if not hasattr(graph, "register_generator_state"):
+            raise RuntimeError(
+                "scan_steps > 1 on CUDA needs "
+                "torch.cuda.CUDAGraph.register_generator_state (torch >= 2.4)"
+            )
+        for gen in (self.dropout_rng, self.sample_rng):
+            graph.register_generator_state(gen)
+        step = self.step
+        before = [w.launches for w in SCORERS]
+        with torch.cuda.graph(graph):
+            self._graph_loss = self._device_step()
+        # The capture runs nothing: the steps and the scorer launches it
+        # recorded are counted at each replay instead.
+        self.step = step
+        self._graph_launches = [
+            w.launches - n for w, n in zip(SCORERS, before)
+        ]
+        for w, n in zip(SCORERS, self._graph_launches):
+            w.launches -= n
+        self._graph = graph
+
+    def _graph_step(self, ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One train step through the captured graph (captured on first
+        use, after GRAPH_WARMUP eager steps on a side stream). ``ids``: [B]
+        int32 on the device, or None with device_sampling."""
+        if self._graph_ids is None:
+            self._graph_ids = torch.full(
+                (self.config.batch_size,), -1, dtype=torch.int32,
+                device=self.device,
+            )
+        if ids is not None:
+            self._graph_ids.copy_(ids)
+        if self._graph is None and self._graph_warm < GRAPH_WARMUP:
+            side = torch.cuda.Stream(device=self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                loss = self._device_step()
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            self._graph_warm += 1
+            return loss
+        if self._graph is None:
+            self._capture()
+        self._graph.replay()
+        self.step += 1
+        for w, n in zip(SCORERS, self._graph_launches):
+            w.launches += n
+        return self._graph_loss.clone()
+
+    def _epoch_steps(self) -> List[torch.Tensor]:
+        """One epoch's train steps on the device-resident data; returns
+        their losses, left on the device."""
+        cfg = self.config
+        k = max(cfg.scan_steps, 1)
+        graphed = k > 1 and self.device.type == "cuda"
+        if self._sampler is not None:
+            steps = -(-len(self._train_ids) // cfg.batch_size)
+            if graphed:
+                return [self._graph_step() for _ in range(steps)]
+            return [self._device_step() for _ in range(steps)]
+        blocks = np.stack(list(self._epoch_id_batches()))
+        if not graphed:
+            return [self._step_ids(ids) for ids in blocks]
+        losses = []
+        whole = (len(blocks) // k) * k
+        for start in range(0, whole, k):
+            block = torch.as_tensor(blocks[start:start + k],
+                                    device=self.device)
+            losses += [self._graph_step(ids) for ids in block]
+        for ids in blocks[whole:]:
+            losses.append(
+                self._graph_step(torch.as_tensor(ids, device=self.device))
+            )
+        return losses
 
     def _epoch_id_batches(self):
         """The epoch's sampled train ids, batch by batch, -1 padded: the
@@ -315,8 +493,7 @@ class Trainer:
         for epoch in range(start_epoch, cfg.max_epochs):
             t0 = time.time()
             if loader is None:
-                losses = [self._step_ids(ids)
-                          for ids in self._epoch_id_batches()]
+                losses = self._epoch_steps()
             else:
                 losses = [self._step(b.to(self.device)) for b in loader]
             if not losses:
@@ -412,27 +589,28 @@ class Trainer:
     # ------------------------------------------------------------------
     def save_state(self, path: str) -> None:
         """Full state for resume, at ``path + ".state.pt"``: weights and
-        statistics, optimizer, both random streams, step and update counts,
-        epochs done, best-metric table."""
+        statistics, optimizer (its update count included), the three random
+        streams, step count, epochs done, best-metric table."""
         save_checkpoint(path + STATE, {
             "model": self.model.state_dict(),
             "optimizer": self.optimizer.state_dict(),
             "dropout_rng": self.dropout_rng.get_state(),
+            "sample_rng": self.sample_rng.get_state(),
             "id_rng": self.id_rng.bit_generator.state,
             "step": self.step,
-            "updates": self.updates,
             "epochs_done": len(self.history),
             "best": dict(self.best),
         })
 
     def load_state(self, path: str) -> None:
+        """Restore ``save_state(path)``, in place (see the module doc)."""
         ck = load_checkpoint(path + STATE)
         self.model.load_state_dict(ck["model"])
         self.optimizer.load_state_dict(ck["optimizer"])
         self.dropout_rng.set_state(ck["dropout_rng"])
+        self.sample_rng.set_state(ck["sample_rng"])
         self.id_rng.bit_generator.state = ck["id_rng"]
         self.step = ck["step"]
-        self.updates = ck["updates"]
         self.best = {k: float(v) for k, v in ck["best"].items()}
 
     def save_kernels(self, out_dir: str):

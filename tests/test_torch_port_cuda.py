@@ -264,3 +264,105 @@ def test_cuda_trainer_step():
     assert torch.isfinite(loss).item()
     conv = model.gnn_model.gnn.layers[0].trainable_kernelconv_set[3]
     assert conv.x_support.grad.abs().sum().item() > 0
+
+
+def _small_run(tmp_path, sub, **kw):
+    """A 2-layer model with the scorer kernel and dropout 0.25 on 320
+    tie-free molecules (256 train: 8 steps of 32 an epoch), on the card."""
+    from molkgnn_torch.data.dataset import make_tie_free_dataset
+    from molkgnn_torch.graphs.batch import spec_for_graphs
+    from molkgnn_torch.models.kgnn import MolKGNNNet
+    from molkgnn_torch.training.model import GNNModel
+    from molkgnn_torch.training.trainer import TrainConfig, Trainer
+
+    ds = make_tie_free_dataset(320, 256, seed=3, active_fraction=0.3)
+    gen = torch.Generator().manual_seed(5)
+    model = GNNModel(
+        MolKGNNNet(num_layers=2, use_kernel=True, drop_ratio=0.25,
+                   generator=gen),
+        ffn_dropout_rate=0.25, generator=gen,
+    )
+    cfg = dict(batch_size=32, max_epochs=1, warmup_iterations=4,
+               tot_iterations=40, progress=False,
+               log_dir=str(tmp_path / sub / "logs"))
+    cfg.update(kw)
+    return Trainer(model, ds, spec_for_graphs(ds.graphs, 32),
+                   TrainConfig(**cfg))
+
+
+def _max_param_diff(a, b):
+    sb = b.model.state_dict()
+    return max((v - sb[k]).abs().max().item()
+               for k, v in a.model.state_dict().items())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("device_sampling", [False, True])
+def test_cuda_graphed_steps_equal_eager_steps(tmp_path, device_sampling):
+    """8 steps with dropout on, eager (scan_steps=1) and through the
+    captured graph (scan_steps=8: 2 eager warm-up steps, then replays):
+    the same ids and dropout masks, so losses within 1e-5 relative and
+    parameters within 1e-5 (index_add_ sums in its own order on each run).
+    An unregistered dropout generator would replay one mask and fail."""
+    _needs_card()
+    runs = {}
+    for k in (1, 8):
+        t = _small_run(tmp_path, f"k{k}", scan_steps=k,
+                       device_sampling=device_sampling)
+        before = ss.grouped_support_score.launches
+        t.fit()
+        runs[k] = (t, ss.grouped_support_score.launches - before)
+    eager, graphed = runs[1][0], runs[8][0]
+    assert eager.step == graphed.step == 8
+    assert graphed._graph is not None
+    losses = np.array(graphed.step_losses)
+    np.testing.assert_allclose(losses, eager.step_losses, rtol=1e-5)
+    assert len(set(losses.tolist())) == 8  # every step drew its own batch
+    assert _max_param_diff(eager, graphed) <= 1e-5
+    # The scorer's launches: 2 a step (one a layer), replays included, and
+    # 2 for the one validation batch; the capture itself launches none.
+    assert runs[1][1] == runs[8][1] == 2 * 8 + 2
+
+
+@pytest.mark.cuda
+def test_cuda_sample_ids_follow_the_weights():
+    _needs_card()
+    from molkgnn_torch.data.dataset import oversampling_weights
+    from molkgnn_torch.graphs.device_pack import alias_sampler, sample_ids
+
+    rng = np.random.default_rng(4)
+    labels = (rng.random(300) < 0.05).astype(np.float32)
+    labels[:3] = 1.0
+    weights = oversampling_weights(labels)
+    table = alias_sampler(weights)
+    prob = torch.from_numpy(table.prob).cuda()
+    alias = torch.from_numpy(table.alias).cuda()
+    ids = torch.arange(300, dtype=torch.int32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    draws = torch.cat([sample_ids(gen, prob, alias, ids, 1000)
+                       for _ in range(200)]).cpu().numpy()
+    counts = np.bincount(draws, minlength=300)
+    p = weights / weights.sum()
+    expected = p * draws.size
+    sigma = np.sqrt(draws.size * p * (1 - p))
+    assert np.all(np.abs(counts - expected) <= 5 * sigma)
+
+
+@pytest.mark.cuda
+def test_cuda_resumed_graphed_run_equals_uninterrupted(tmp_path):
+    """Device sampling with scan_steps=4: a run stopped after 2 of 4 epochs
+    and resumed from its autosave in a fresh Trainer (which captures its
+    own graph) ends within 1e-5 of the uninterrupted run."""
+    _needs_card()
+    kw = dict(scan_steps=4, device_sampling=True, max_epochs=4)
+    straight = _small_run(tmp_path, "straight", **kw)
+    straight.fit()
+    auto = str(tmp_path / "auto")
+    _small_run(tmp_path, "first", **dict(kw, max_epochs=2),
+               autosave_path=auto).fit()
+    second = _small_run(tmp_path, "second", autosave_path=auto, **kw)
+    second.fit()
+    assert second.step == straight.step == 32
+    np.testing.assert_allclose(second.step_losses, straight.step_losses[16:],
+                               rtol=1e-5)
+    assert _max_param_diff(straight, second) <= 1e-5

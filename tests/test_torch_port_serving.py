@@ -122,6 +122,13 @@ import molkgnn_torch.training.metrics
 import molkgnn_torch.training.optim
 import molkgnn_torch.training.schedule
 import molkgnn_torch.training.trainer
+import molkgnn_torch.chem
+import molkgnn_torch.chem.embed
+import molkgnn_torch.chem.smiles
+import molkgnn_torch.data.qsar
+import molkgnn_torch.data.d4dchp
+import molkgnn_torch.data.preprocess
+import molkgnn_torch.cli.entry
 import chip_smoke
 loaded = sorted(m for m in sys.modules if banned(m))
 assert not loaded, loaded
@@ -134,3 +141,28 @@ print("clean")
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
+
+
+BANNED_ROOTS = {"jax", "jaxlib", "flax", "optax", "sklearn", "molkgnn_tpu"}
+
+
+def test_port_sources_import_no_jax():
+    """No import statement anywhere in the port's sources or chip_smoke.py,
+    at module level or inside a function, names jax, flax, optax,
+    scikit-learn or the JAX package."""
+    import ast
+    import pathlib
+
+    files = sorted(pathlib.Path(REPO, "molkgnn_torch").rglob("*.py"))
+    files.append(pathlib.Path(REPO, "chip_smoke.py"))
+    assert len(files) > 30
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in BANNED_ROOTS, (path, name)

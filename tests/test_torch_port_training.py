@@ -300,6 +300,59 @@ def test_schedule_matches_jax():
     assert ts(0) == peak / warm and ts(tot - 1) == end
 
 
+def test_tensor_schedule_equals_float_schedule():
+    """The schedule on a count tensor (what a captured step reads) equals
+    the float schedule bit for bit at every count, through warmup, decay
+    and past the end."""
+    from molkgnn_torch.training.schedule import (
+        polynomial_warmup_decay_tensor,
+    )
+
+    for args in ((5e-3, 1e-10, 10, 100), (5e-2, 1e-9, 60002, 6360 * 20 + 2),
+                 (1e-2, 0.0, 0, 7)):
+        ts = t_sched(*args)
+        tt = polynomial_warmup_decay_tensor(*args)
+        counts = sorted({0, 1, args[2] - 1, args[2], args[2] + 1,
+                         args[3] - 2, args[3] - 1, args[3], args[3] + 5,
+                         *range(0, args[3] + 3, max(args[3] // 37, 1))})
+        for c in counts:
+            got = tt(torch.tensor(c, dtype=torch.int64))
+            assert got.dtype == torch.float64
+            assert float(got) == ts(c), (args, c)
+
+
+def test_adamw_apply_flag_selects_the_update():
+    """AdamW.step with apply=True equals apply=None bit for bit; with
+    apply=False parameters, moments and the count stay as they were."""
+    def fresh():
+        torch.manual_seed(0)
+        model = TModel(TNet(**CFG))
+        opt = t_optim.make_optimizer(model, weight_decay=0.1)
+        for p in opt.params:
+            p.grad = torch.randn_like(p)
+        return model, opt
+
+    lr = torch.tensor(1e-2, dtype=torch.float64)
+    runs = {}
+    for flag in (None, True, False):
+        model, opt = fresh()
+        before = [p.detach().clone() for p in opt.params]
+        apply = None if flag is None else torch.tensor(flag)
+        for _ in range(2):
+            opt.step(lr, apply)
+        runs[flag] = (model, opt, before)
+    m_none, o_none, _ = runs[None]
+    m_true, o_true, _ = runs[True]
+    for a, b in zip(o_none.params, o_true.params):
+        assert torch.equal(a, b)
+    assert int(o_none.count) == int(o_true.count) == 2
+    _, o_false, before = runs[False]
+    for p, b in zip(o_false.params, before):
+        assert torch.equal(p, b)
+    assert int(o_false.count) == 0
+    assert all(not m.any() for m in o_false.exp_avg + o_false.exp_avg_sq)
+
+
 def test_decay_partition_matches_jax(jax_run):
     """The port decays exactly the parameters the JAX mask decays;
     edge_attr_support_sc_weight decays, the kernel tensors do not."""
