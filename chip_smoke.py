@@ -71,6 +71,30 @@ Phases, in order; any failure exits non-zero and prints no result line:
               epochs): test logAUC[0.001,0.1] and AUC, --test as in (a),
               and the train loss must fall. Then train graphs/s of that
               configuration at batch 32, eager against graph-replayed.
+  7. screen:  library screening, import and export. (a) A library of
+              phase 4's 8192 molecules repeated 16 times (131,072: slabs
+              of 100,000 and 31,072) through Predictor.screen_library with
+              the flagship (use_kernel=True) at batch 1024: the scorer
+              launches 4 times a block (replays counted), each slab's
+              host check and flat-packing seconds are printed, and
+              screening graphs/s stands beside predict_graphs end to end
+              and forward only, measured ABCCBA. On 2048 tie-free
+              molecules over two slabs, screen_library's scores equal
+              predict_graphs' within 1e-4. (b) A reference-layout .ckpt
+              ({'state_dict': ...}, with the dead lin1/lin2/
+              graph_embedding_linear keys and num_batches_tracked) of
+              flagship weights goes through
+              molkgnn_torch.cli.import_ckpt.main (exported on the card)
+              and molkgnn_torch.cli.screen.main on phase 6's SDF records
+              with a malformed one inserted: the CSV's scores equal a
+              Predictor's with the same weights within 1e-4, the
+              malformed record's cell is empty, and the scorer launches 4
+              times a batch inside the exported program. (c) Evaluation
+              at batch 32: phase 6(a)'s history.json evaluation seconds
+              by epoch (its run is not repeated), and the flagship
+              Trainer's evaluation of phase 6's 6,187 molecules (194
+              batches of 32) captured against the eager batch loop it
+              replaced, ABBA, with 4 launches a batch.
 
 The last lines are the records of the phases' numbers, the kernel record
 ({"kernels": [...]}), the card's name and power limit, and
@@ -106,10 +130,32 @@ SEED = 0
 # keeps the script within about 5 minutes; the full-count run is
 # `python -m molkgnn_torch.tools.enantiomer`, with the same builder.
 SMOKE_INACTIVES = 6000
+# Phase 7(a): phase 4's molecules repeated into a library of 131,072.
+SCREEN_REPEAT = 16
+SLAB = 100_000
+# The CLI epoch's evaluation at AID 1798's full counts while it ran eager,
+# batch by batch: 194 batches of 32 in 6.6 s on an NVIDIA H100 80GB HBM3 at
+# 700 W (PERF.md, section 5); phase 7(c) prints its own beside it.
+EAGER_EVAL_S = 6.6
 
 
 def log(*args):
     print(*args, flush=True)
+
+
+def reset_launches():
+    """Set every scorer wrapper's launch count to 0."""
+    from molkgnn_torch.ops import support_score as ss
+
+    for name in REPLACES:
+        getattr(ss, name).launches = 0
+
+
+def launch_counts():
+    """Each scorer wrapper's launch count, by wrapper name."""
+    from molkgnn_torch.ops import support_score as ss
+
+    return {name: getattr(ss, name).launches for name in REPLACES}
 
 
 def nvidia_smi_line() -> str:
@@ -280,6 +326,29 @@ class Smoke:
             device_ms(torch, kernel_fn),
         )
 
+    def time_dispatch(self, a_list, b_list):
+        """The registered op's cost: one grouped launch through
+        ``torch.ops.molkgnn.support_score`` against the same launch made
+        directly (``_launch``, the ctypes call the op's CUDA version makes),
+        ms each by CUDA events, in turns op, direct, direct, op. Back-to-back
+        launches this small are paced by the host, so the difference is the
+        op's host dispatch."""
+        from molkgnn_torch.ops import support_score as ss
+
+        torch = self.torch
+        forms = {
+            "op": lambda: ss.grouped_support_score(a_list, b_list),
+            "direct": lambda: ss._launch(a_list, b_list),
+        }
+        times = {name: [] for name in forms}
+        with torch.no_grad():
+            for name in ("op", "direct", "direct", "op"):
+                times[name].append(time_ms(torch, forms[name], reps=200))
+        log(f"    op against direct launch: op {times['op']} ms, direct "
+            f"{times['direct']} ms; op - direct "
+            f"{min(times['op']) - min(times['direct']):.4f} ms (best of 2)")
+        return times
+
     def log_times(self, what, t, shapes):
         b_ms, by = bound_ms(shapes)
         log(f"  {what}: kernel {t[0]:.4f} ms (device {fmt_ms(t[3])}), plain "
@@ -304,6 +373,7 @@ class Smoke:
         # (kernel, layer) -> ((kernel, plain, library, device) ms, shapes,
         # max err)
         self.per_request = {}
+        self.op_dispatch = {}  # layer -> {"op": [ms], "direct": [ms]}
         for layer, dims in layer_shapes.items():
             ops = [self.operands(m, d, f, l, gen) for m, d, f, l in dims]
             a_list, b_list = [a for a, _ in ops], [b for _, b in ops]
@@ -320,6 +390,7 @@ class Smoke:
                 ms, shapes, err
             )
             self.log_times(f"grouped {layer}", ms, shapes)
+            self.op_dispatch[layer] = self.time_dispatch(a_list, b_list)
             # Each degree alone, through the fused entry point (G = 1). The
             # per-degree KernelConv path launches it once per degree at the
             # layer-0 shapes.
@@ -1006,7 +1077,6 @@ class Smoke:
 
         from molkgnn_torch.cli import entry
         from molkgnn_torch.data.qsar import load_qsar_dataset
-        from molkgnn_torch.ops import support_score as ss
         from molkgnn_torch.tools.enantiomer import (
             ENANTIOMER_ARGS,
             JAX_CPU_RECORD,
@@ -1040,15 +1110,15 @@ class Smoke:
 
         def run(name, layers, epochs, extra):
             out = os.path.join(tmp, name)
-            ss.grouped_support_score.launches = 0
-            ss.fused_support_score.launches = 0
+            reset_launches()
             t0 = time.perf_counter()
             rc = entry.main(common + ["--default_root_dir", out,
                                       "--max_epochs", str(epochs), *extra])
             secs = time.perf_counter() - t0
             if rc != 0:
                 raise AssertionError(f"{name}: the CLI returned {rc}")
-            launches = ss.grouped_support_score.launches
+            counts = launch_counts()
+            launches = counts["grouped_support_score"]
             logs = os.path.join(out, "logs")
             tested = parse_test_result(os.path.join(logs, "test_result.log"))
             steps = epochs * -(-sizes["train"] // 32)
@@ -1059,10 +1129,10 @@ class Smoke:
                 f"{eval_batches} evaluation batches (validation, "
                 f"{len(tested)} checkpoints on test, the embeddings); "
                 f"scorer launches {launches} (want {want}), fused "
-                f"{ss.fused_support_score.launches}")
-            if launches != want:
-                raise AssertionError(f"{name}: scorer launches {launches}, "
-                                     f"want {want}")
+                f"{counts['fused_support_score']}")
+            if launches != want or counts["fused_support_score"]:
+                raise AssertionError(f"{name}: scorer launches {counts}, "
+                                     f"want {want} grouped and 0 fused")
             files = ["history.json", "test_result.log", "task_info.log",
                      "kernels/kernels.npz", "graph_embedding.npy"] + [
                 f"test_sample_scores_{tag}.log" for tag in tested]
@@ -1087,7 +1157,7 @@ class Smoke:
                 f"{[round(e['AUC'], 4) for e in history]}; test [last] "
                 f"logAUC[0.001,0.1] {tested['last']['logAUC_0.001_0.1']:.4f}"
                 f", AUC {tested['last']['AUC']:.4f}")
-            return out, tested, losses, secs, launches
+            return out, tested, losses, secs, counts
 
         def retest(name, out, tested):
             """--test on the run's root: the same tags, labels and, within
@@ -1129,20 +1199,23 @@ class Smoke:
 
         problems = []
 
-        out, tested, _, secs, launches = run("flagship", 4, 2, [])
+        out, tested, _, secs, counts = run("flagship", 4, 2, [])
+        with open(os.path.join(out, "logs", "history.json")) as f:
+            self.cli_history = json.load(f)
         self.cli_record["flagship"] = {
-            "seconds": secs, "launches": launches, "test": tested,
+            "seconds": secs, "launches": counts, "test": tested,
             "retest": retest("flagship", out, tested)}
-        self.cli_launches = launches
+        self.cli_launches = counts
+        self.cli_data = (ds, root)
 
-        out, tested, losses, secs, launches = run(
+        out, tested, losses, secs, counts = run(
             "enantiomer", 1, 20, ENANTIOMER_ARGS)
         common += ENANTIOMER_ARGS
         retested = retest("enantiomer", out, tested)
         if not losses[-1] < losses[0]:
             problems.append("the enantiomer train loss did not fall")
         self.cli_record["enantiomer"] = {
-            "seconds": secs, "launches": launches, "test": tested,
+            "seconds": secs, "launches": counts, "test": tested,
             "train_loss": losses, "retest": retested,
             "jax_cpu_record": JAX_CPU_RECORD,
         }
@@ -1180,6 +1253,269 @@ class Smoke:
             trainers["graphed+device_sampling"][0],
             "enantiomer b32 graphed+device_sampling")
 
+
+    # ------------------------------------------------------------ phase 7
+    def phase_screen(self, graphs, spec, tmp):
+        self.screen_tie_free()
+        self.screen_library_rates(graphs, spec)
+        self.import_export_screen(tmp)
+        self.evaluation_seconds()
+
+    def screen_tie_free(self):
+        """screen_library against predict_graphs on 2048 tie-free molecules
+        at batch 512 over slabs of 1200 (two slabs): within 1e-4."""
+        import numpy as np
+
+        from molkgnn_torch.data.synthetic import tie_free_molgraph
+        from molkgnn_torch.graphs.batch import spec_for_graphs
+        from molkgnn_torch.serving.predictor import Predictor
+
+        rng = np.random.default_rng(SEED + 7)
+        mols = [tie_free_molgraph(rng) for _ in range(2048)]
+        model = self.flagship(4, True, seed=3)
+        pred = Predictor(model, model.state_dict(),
+                         spec_for_graphs(mols, 512))
+        want = pred.predict_graphs(mols)
+        got = pred.screen_library(mols, slab=1200)
+        diff = float(np.abs(got - want).max())
+        log(f"  tie-free: screen_library over slabs "
+            f"{[s['molecules'] for s in pred.screen_slabs]} against "
+            f"predict_graphs: max |diff| {diff:.3e}")
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+    def screen_library_rates(self, graphs, spec):
+        """The main path of phase 7(a): the library screened, counted; then
+        screening, predict_graphs end to end and forward only in turns."""
+        import numpy as np
+
+        from molkgnn_torch.graphs.batch import batch_graphs
+        from molkgnn_torch.serving.predictor import Predictor
+
+        torch = self.torch
+        card = torch.cuda.get_device_name(0)
+        library = list(graphs) * SCREEN_REPEAT
+        n = len(library)
+        blocks = sum(-(-min(SLAB, n - s) // BATCH) for s in range(0, n, SLAB))
+        model = self.flagship(4, True)
+        pred = Predictor(model, model.state_dict(), spec)
+        reset_launches()
+        t0 = time.perf_counter()
+        scores = pred.screen_library(library, slab=SLAB)
+        secs = time.perf_counter() - t0
+        counts = launch_counts()
+        launches = counts["grouped_support_score"]
+        log(f"  screen_library: {n} molecules in {secs:.3f} s, {blocks} "
+            f"blocks of {BATCH}; launches grouped {launches} (want "
+            f"{4 * blocks}), fused {counts['fused_support_score']}")
+        for i, slab in enumerate(pred.screen_slabs):
+            log(f"    slab {i}: {slab['molecules']} molecules, host check "
+                f"{slab['check_s']:.3f} s, flat packing and copy to the "
+                f"card {slab['pack_s']:.3f} s")
+        if launches != 4 * blocks or counts["fused_support_score"]:
+            raise AssertionError("screen_library: scorer launches are not "
+                                 "4 a block")
+        if scores.shape != (n,) or not np.isfinite(scores).all():
+            raise AssertionError("screen_library scores are not finite")
+        want = pred.predict_graphs(graphs)
+        gap = float(np.abs(scores[:len(graphs)] - want).max())
+        repeat_gap = float(np.abs(scores.reshape(SCREEN_REPEAT, -1)
+                                  - scores[:len(graphs)]).max())
+        log(f"  screen_library against predict_graphs on the first "
+            f"{len(graphs)}: max |diff| {gap:.3e}; across the "
+            f"{SCREEN_REPEAT} copies {repeat_gap:.3e} (not held: these "
+            f"molecules have ties)")
+        self.screen_launches = counts
+
+        batches = [batch_graphs(graphs[s:s + BATCH], spec).to("cuda")
+                   for s in range(0, len(graphs), BATCH)]
+
+        def screen():
+            pred.screen_library(library, slab=SLAB)
+
+        def e2e():
+            pred.predict_graphs(library)
+
+        def forward_only():
+            with torch.inference_mode():
+                for _ in range(SCREEN_REPEAT):
+                    for b in batches:
+                        pred.model(b)
+                torch.cuda.synchronize()
+
+        forms = {"screen_library": screen, "predict_graphs": e2e,
+                 "forward_only": forward_only}
+        runs = {name: [] for name in forms}
+        packs = []
+        for name in ("screen_library", "predict_graphs", "forward_only",
+                     "forward_only", "predict_graphs", "screen_library"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            forms[name]()
+            runs[name].append(time.perf_counter() - t0)
+            if name == "screen_library":
+                packs.append([s["pack_s"] for s in pred.screen_slabs])
+        self.screen_record = {
+            "molecules": n, "blocks": blocks, "launches": launches,
+            "slabs": pred.screen_slabs, "pack_s_by_run": packs,
+            "gap_to_predict_graphs": gap,
+        }
+        for name, secs in runs.items():
+            self.screen_record[name] = {
+                "seconds": secs, "graphs_per_s": n / min(secs)}
+            log(f"  {name} on {card}: {n / min(secs):.1f} graphs/s (best of "
+                f"{secs} s; {n} molecules at batch {BATCH})")
+        log(f"  flat packing by slab in the timed screens: {packs} s")
+
+    def import_export_screen(self, tmp):
+        """Phase 7(b): a reference checkpoint through the import and screen
+        CLIs on the card, against a Predictor with the same weights."""
+        import numpy as np
+
+        from molkgnn_torch.chem.features import mol_to_graph
+        from molkgnn_torch.chem.sdf import parse_sdf
+        from molkgnn_torch.cli import import_ckpt, screen
+        from molkgnn_torch.serving.predictor import Predictor
+
+        torch = self.torch
+        _, root = self.cli_data
+        raw = os.path.join(root, "raw")
+        lib = os.path.join(tmp, "library.sdf")
+        bad = 187  # the malformed record, between the two files' records
+        with open(lib, "w") as f:
+            for name in ("actives", "inactives"):
+                with open(os.path.join(raw, f"1798_{name}_new.sdf")) as src:
+                    f.write(src.read())
+                if name == "actives":
+                    f.write("garbage\n\n\n  0  0\nM  END\n$$$$\n")
+        model = self.flagship(4, True, seed=SEED + 11)
+        sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        ref = dict(sd)
+        h = model.gnn_model.graph_embedding_dim
+        for key, shape in (("lin1.weight", (h, h)), ("lin1.bias", (h,)),
+                           ("lin2.weight", (1, h)), ("lin2.bias", (1,)),
+                           ("gnn_model.graph_embedding_linear.weight",
+                            (h, 110)),
+                           ("gnn_model.graph_embedding_linear.bias", (h,))):
+            ref[key] = torch.randn(shape)
+        for bn in ("node_batch_norm", "edge_batch_norm"):
+            ref[f"gnn_model.{bn}.num_batches_tracked"] = torch.tensor(7)
+        ckpt = os.path.join(tmp, "reference.ckpt")
+        torch.save({"state_dict": ref, "epoch": 1}, ckpt)
+        art = os.path.join(tmp, "model.pt2")
+        csv = os.path.join(tmp, "scores.csv")
+
+        t0 = time.perf_counter()
+        if import_ckpt.main(["--torch_ckpt", ckpt, "--sdf", lib, "--out",
+                             art, "--batch_size", str(BATCH)]) != 0:
+            raise AssertionError("molkgnn-torch-import returned non-zero")
+        import_s = time.perf_counter() - t0
+        reset_launches()
+        t0 = time.perf_counter()
+        if screen.main(["--exported", art, "--sdf", lib, "--out", csv]) != 0:
+            raise AssertionError("molkgnn-torch-screen returned non-zero")
+        screen_s = time.perf_counter() - t0
+        counts = launch_counts()
+        launches = counts["grouped_support_score"]
+        got = np.array([
+            np.nan if line.split(",")[1] == "" else float(line.split(",")[1])
+            for line in open(csv).read().splitlines()[1:]
+        ])
+        graphs, invalid = [], []
+        for i, (mol, _) in enumerate(parse_sdf(lib)):
+            g = None if mol is None else mol_to_graph(mol, idx=i)
+            if g is None:
+                invalid.append(i)
+            else:
+                graphs.append(g)
+        _, spec = Predictor.load_exported(art)
+        want = Predictor(self.flagship(4, True), sd, spec).predict_graphs(
+            graphs)
+        batches = -(-len(graphs) // spec.num_graphs)
+        nan_rows = np.nonzero(np.isnan(got))[0].tolist()
+        diff = float(np.abs(got[~np.isnan(got)] - want).max())
+        log(f"  import (exported on the card) {import_s:.1f} s; screen "
+            f"{screen_s:.1f} s: {len(got)} records, empty rows {nan_rows}, "
+            f"{len(graphs)} scored in {batches} batches, scorer launches "
+            f"inside the exported program {launches} (want {4 * batches}); "
+            f"max |CSV - Predictor| {diff:.3e}")
+        if bad not in invalid or nan_rows != invalid:
+            raise AssertionError(f"CSV rows: empty {nan_rows}, want the "
+                                 f"records that do not parse {invalid}, "
+                                 f"{bad} among them")
+        if launches != 4 * batches or counts["fused_support_score"]:
+            raise AssertionError("the exported program did not launch the "
+                                 "scorer 4 times a batch")
+        np.testing.assert_allclose(got[~np.isnan(got)], want, rtol=1e-4,
+                                   atol=1e-4)
+        self.export_launches = counts
+        self.screen_record["cli"] = {
+            "records": len(got), "import_s": import_s, "screen_s": screen_s,
+            "launches": launches, "max_diff": diff}
+
+    def evaluation_seconds(self):
+        """Phase 7(c): evaluation at batch 32, the CLI's and alone."""
+        import numpy as np
+
+        from molkgnn_torch.graphs.batch import spec_for_graphs
+        from molkgnn_torch.graphs.device_pack import gather_batch, pad_ids
+        from molkgnn_torch.training.trainer import TrainConfig, Trainer
+
+        torch = self.torch
+        card = torch.cuda.get_device_name(0)
+        ds, _ = self.cli_data
+        valid_batches = -(-len(ds.split["valid"]) // 32)
+        for e in self.cli_history:
+            log(f"  CLI flagship epoch {e['epoch']}: evaluation "
+                f"{e['eval_time_s']:.3f} s for {valid_batches} batches of 32 "
+                f"({1e3 * e['eval_time_s'] / valid_batches:.2f} ms a batch);"
+                f" eager before: {EAGER_EVAL_S} s for 194 batches "
+                f"({1e3 * EAGER_EVAL_S / 194:.1f} ms a batch)")
+        trainer = Trainer(self.flagship(4, True), ds,
+                          spec_for_graphs(ds.graphs, 32),
+                          TrainConfig(batch_size=32, progress=False))
+        ids = np.arange(len(ds.graphs), dtype=np.int32)
+        nb = -(-len(ids) // 32)
+        idm = torch.as_tensor(np.stack(
+            [pad_ids(ids[s:s + 32], 32) for s in range(0, len(ids), 32)]),
+            device="cuda")
+
+        def captured():
+            return trainer._predict_ids(ids)[1]
+
+        def eager():  # Trainer._predict_ids's loop before the block scorer
+            trainer.model.eval()
+            with torch.no_grad():
+                preds = [trainer.model(gather_batch(
+                    trainer._device_data, row, trainer.spec))[0]
+                    for row in idm]
+                return torch.cat(preds).cpu().numpy()[:len(ids)]
+
+        reset_launches()
+        first = captured()  # the capture
+        counts = launch_counts()
+        eval_launches = counts["grouped_support_score"]
+        if eval_launches != 4 * nb or counts["fused_support_score"]:
+            raise AssertionError(f"captured evaluation launched {counts}, "
+                                 f"want {4 * nb} grouped and 0 fused")
+        gap = float(np.abs(first - eager()).max())
+        times = {"captured": [], "eager": []}
+        for name in ("captured", "eager", "eager", "captured"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (captured if name == "captured" else eager)()
+            times[name].append(time.perf_counter() - t0)
+        for name, secs in times.items():
+            log(f"  evaluation of {len(ids)} molecules ({nb} batches of 32),"
+                f" flagship, {name} on {card}: {secs} s "
+                f"({1e3 * min(secs) / nb:.3f} ms a batch)")
+        log(f"  captured against eager: max |diff| {gap:.3e}; launches "
+            f"{eval_launches} for {nb} batches (4 a batch, replays counted)")
+        self.eval_launches = counts
+        self.eval_record = {
+            "cli_eval_s": [e["eval_time_s"] for e in self.cli_history],
+            "cli_valid_batches": valid_batches, "batches": nb,
+            "seconds": times, "launches": eval_launches, "gap": gap}
+
     # ------------------------------------------------------------ record
     def kernel_record(self):
         entries = []
@@ -1207,8 +1543,17 @@ class Smoke:
             "batch",
             "fused_support_score": "not on the CLI's path",
         }
-        cli_launches = {"grouped_support_score": self.cli_launches,
-                        "fused_support_score": 0}
+        new_paths = {
+            "screen": (self.screen_launches, "Predictor.screen_library, "
+                       "131,072 molecules at batch 1024 in two slabs, one "
+                       "CUDA graph replayed per block, 4 a block"),
+            "export": (self.export_launches, "the exported program "
+                       "(torch.ops.molkgnn.support_score nodes) run by "
+                       "molkgnn_torch.cli.screen, 4 a batch"),
+            "eval": (self.eval_launches, "captured evaluation: "
+                     "Trainer._predict_ids through serving.blocks."
+                     "BlockScorer, 194 batches of 32, 4 a batch"),
+        }
         for name in ("grouped_support_score", "fused_support_score"):
             if name == "grouped_support_score":
                 (l0, s0, e0) = self.per_request[(name, "layer 0")]
@@ -1236,11 +1581,17 @@ class Smoke:
                 "path": paths[name],
                 "train_launches": self.train_launches[name],
                 "train_path": train_paths[name],
-                "cli_launches": cli_launches[name],
+                "cli_launches": self.cli_launches[name],
                 "cli_path": cli_paths[name],
             })
+            for path, (counts, what) in new_paths.items():
+                grouped = name == "grouped_support_score"
+                entries[-1][f"{path}_launches"] = counts[name]
+                entries[-1][f"{path}_path"] = (
+                    what if grouped else "not on this path")
             if name == "grouped_support_score":
                 entries[-1]["backward_ms_per_step"] = self.backward_step_ms
+                entries[-1]["op_dispatch_ms"] = self.op_dispatch
         return {"kernels": entries}
 
 
@@ -1301,10 +1652,13 @@ def main() -> int:
         log("[5] training path")
         smoke.phase_train(spec)
 
-        phase = "cli"
-        log("[6] the CLI on an AID-1798 SDF pair")
         with tempfile.TemporaryDirectory() as tmp:
+            phase = "cli"
+            log("[6] the CLI on an AID-1798 SDF pair")
             smoke.phase_cli(tmp)
+            phase = "screen"
+            log("[7] screening, import and export")
+            smoke.phase_screen(graphs, spec, tmp)
         record = smoke.kernel_record()
     except Exception:
         traceback.print_exc()
@@ -1316,7 +1670,9 @@ def main() -> int:
                       "train_step_profile_ms": smoke.step_profile,
                       "graphed_vs_eager": smoke.graphed_vs_eager_record,
                       "graphed": smoke.graphed_record,
-                      "cli": smoke.cli_record}),
+                      "cli": smoke.cli_record,
+                      "screen": smoke.screen_record,
+                      "evaluation": smoke.eval_record}),
           flush=True)
     print(json.dumps(record), flush=True)
     print(smi, flush=True)

@@ -84,6 +84,31 @@ class GraphBatch:
     def to(self, device) -> "GraphBatch":
         return _to(self, device)
 
+    def leaves(self) -> list:
+        """The 26 tensors in the order ``jax.tree_util.tree_flatten`` gives
+        the JAX package's GraphBatch: the fields in order, each bucket's
+        four fields in place of the bucket."""
+        out = []
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if isinstance(v, DegreeBucket):
+                out += [getattr(v, b.name) for b in dataclasses.fields(v)]
+            else:
+                out.append(v)
+        return out
+
+    @classmethod
+    def from_leaves(cls, leaves) -> "GraphBatch":
+        """The inverse of ``leaves``."""
+        it = iter(leaves)
+        kw = {}
+        for f in dataclasses.fields(cls):
+            if f.name.startswith("deg"):
+                kw[f.name] = DegreeBucket(*(next(it) for _ in range(4)))
+            else:
+                kw[f.name] = next(it)
+        return cls(**kw)
+
 
 @dataclasses.dataclass(frozen=True)
 class BatchSpec:

@@ -7,17 +7,29 @@ neighborhoods ``a`` [M, K] (K = d*F) and permuted supports ``b`` [P, K, L]:
     idx[m, l]  = first p reaching the max (int32)       caller divides by d)
 
 ``fused_support_score`` scores one bucket, ``grouped_support_score`` all
-buckets of a layer in one launch. Both launch the same kernel,
-``csrc/support_score.cu`` (after a small kernel in the same call that packs
-B into scratch for it). A wrapper takes the plain PyTorch version
-(``support_score_plain``) only when its tensors lie on the CPU; for CUDA
-tensors it launches the kernel or raises. Each wrapper counts its kernel
-launches in its ``launches`` attribute. Inside a CUDA graph capture the
-wrapper records its launch and counts it as usual; the replays launch it.
-The ``Trainer`` that captures a train step takes the capture's count back
-(a capture runs nothing) and adds it at every replay
-(``training/trainer.py::Trainer._graph_step``), so that ``launches``
-counts the kernel's launches on the card.
+buckets of a layer in one launch. Both go through one registered torch op,
+``torch.ops.molkgnn.support_score(a_list, b_list, fused)``, so that
+``torch.export`` records the scorer as one node of the exported graph (a
+ctypes call on raw pointers cannot be traced). The op returns two flat
+buffers, every group's ``best`` one after another and every group's
+``idx`` likewise (an op's outputs may not alias each other or its inputs);
+the wrappers take the per-group views outside it. Its implementations:
+
+  * CUDA: the kernel, ``csrc/support_score.cu`` (after a small kernel in
+    the same call that packs B into scratch for it), counted in the
+    ``launches`` attribute of the wrapper that ``fused`` names. The count
+    lives here, so an exported program's run counts its launches too;
+  * CPU: the plain PyTorch version (``support_score_plain``), uncounted;
+  * fake (meta): the output shapes, from the input shapes alone.
+
+A tensor on the CPU takes the plain version only because it lies there; a
+CUDA tensor launches the kernel or raises. Inside a CUDA graph capture the
+op records its launch and counts it as usual; the replays launch it. A
+caller that captures (the ``Trainer``'s train step, the block scorer of
+``serving/blocks.py``) takes the capture's count back with
+``take_launches`` (a capture runs nothing) and adds it at every replay with
+``add_launches``, so that ``launches`` counts the kernel's launches on the
+card.
 
 Gradients: when autograd records (grad enabled and an input requires grad),
 both wrappers go through one ``torch.autograd.Function`` over G groups,
@@ -27,7 +39,9 @@ through the chosen permutation: one scatter of the output gradient to it
 and two products per group. The JAX backward is XLA, not Pallas, so it has
 no kernel of its own here either.
 Without autograd (``torch.no_grad``/``inference_mode``) the wrappers call
-the forward directly and the Function costs nothing.
+the op directly and the Function costs nothing. The Function stays around
+the op (rather than ``torch.library.register_autograd``) so that the
+per-group views and the saved argmaxes are those of the training slice.
 """
 
 from __future__ import annotations
@@ -35,7 +49,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
-from typing import Sequence
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -125,21 +139,20 @@ def block_order(shapes) -> list[int]:
 
 
 def output_offsets(shapes) -> tuple[list[int], int]:
-    """Element offsets of the groups' [M, L] outputs in one flat buffer, and
-    the buffer's length rounded up to a multiple of 4, where the scratch
-    for packed B starts, 16-byte aligned. shapes: [(M, K, L, P)]."""
+    """Element offsets of the groups' [M, L] outputs in one flat buffer,
+    and the buffer's length. shapes: [(M, K, L, P)]."""
     offsets, n = [], 0
     for m, _, l, _ in shapes:
         offsets.append(n)
         n += m * l
-    return offsets, -(-n // 4) * 4
+    return offsets, n
 
 
 @functools.lru_cache(maxsize=256)
 def _plan(shapes: tuple):
-    """(block order, output offsets, outputs' length, scratch start,
-    scratch floats) for groups of these (M, K, L, P); the scratch size is
-    asked of the kernel library, which lays out the packed B."""
+    """(block order, output offsets, outputs' length, scratch floats) for
+    groups of these (M, K, L, P); the scratch size is asked of the kernel
+    library, which lays out the packed B."""
     lib = _kernel_lib()
     args = [v for shape in shapes for v in (0, 0, 0, 0, *shape)]
     scratch = lib.molkgnn_support_score_scratch(
@@ -147,19 +160,17 @@ def _plan(shapes: tuple):
     )
     if scratch < 0:
         raise ValueError(f"support kernel does not take groups {shapes}")
-    offsets, start = output_offsets(shapes)
-    n_out = sum(m * l for m, _, l, _ in shapes)
-    return tuple(block_order(shapes)), tuple(offsets), n_out, start, scratch
+    offsets, n_out = output_offsets(shapes)
+    return tuple(block_order(shapes)), tuple(offsets), n_out, scratch
 
 
 def _launch(a_list, b_list):
-    """Launch the kernel once over all groups; returns [(best, idx)].
+    """Launch the kernel once over all groups; returns the flat (best,
+    idx) buffers, group after group at ``output_offsets``.
 
-    One float32 allocation holds every group's best and, after them, the
-    scratch for B packed by the kernel; one int32 allocation holds the
-    argmaxes; each group's outputs are strided views into them. The
-    arguments travel in one int64 array. All this keeps the host's share
-    of a launch small.
+    B packed by the kernel goes to a scratch buffer of its own, released
+    (stream-ordered) when the launch returns. The arguments travel in one
+    int64 array, which keeps the host's share of a launch small.
     """
     g = len(a_list)
     if not 1 <= g <= MAX_GROUPS:
@@ -171,18 +182,12 @@ def _launch(a_list, b_list):
         _check(a, b)
         shapes.append((a.shape[0], a.shape[1], b.shape[2], b.shape[0]))
     shapes = tuple(shapes)
-    order, offsets, n_out, start, scratch = _plan(shapes)
+    order, offsets, n_out, scratch = _plan(shapes)
     device = a_list[0].device
-    floats = torch.empty(start + scratch, dtype=torch.float32, device=device)
-    ints = torch.empty(n_out, dtype=torch.int32, device=device)
-    outs = [
-        (
-            floats.as_strided((m, l), (l, 1), o),
-            ints.as_strided((m, l), (l, 1), o),
-        )
-        for (m, _, l, _), o in zip(shapes, offsets)
-    ]
-    fp, ip = floats.data_ptr(), ints.data_ptr()
+    best = torch.empty(n_out, dtype=torch.float32, device=device)
+    idx = torch.empty(n_out, dtype=torch.int32, device=device)
+    packed_b = torch.empty(scratch, dtype=torch.float32, device=device)
+    fp, ip = best.data_ptr(), idx.data_ptr()
     args = []
     for i in order:
         args += (
@@ -193,11 +198,41 @@ def _launch(a_list, b_list):
     same = device.index == torch.cuda.current_device()
     with contextlib.nullcontext() if same else torch.cuda.device(device):
         err = lib.molkgnn_support_score(
-            g, (ctypes.c_int64 * len(args))(*args), fp + 4 * start, scratch,
+            g, (ctypes.c_int64 * len(args))(*args), packed_b.data_ptr(),
+            scratch,
             torch._C._cuda_getCurrentRawStream(device.index),
         )
     _raise_on(lib, err, "launch")
-    return outs
+    return best, idx
+
+
+@torch.library.custom_op(
+    "molkgnn::support_score", mutates_args=(), device_types="cpu"
+)
+def support_score_op(
+    a_list: List[torch.Tensor], b_list: List[torch.Tensor], fused: bool
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The scorer over G groups as one op: (best, idx) flat, group after
+    group (see the module doc). ``fused`` names the wrapper whose
+    ``launches`` count the CUDA launch. This body is the CPU version."""
+    outs = [support_score_plain(a, b) for a, b in zip(a_list, b_list)]
+    return (torch.cat([best.reshape(-1) for best, _ in outs]),
+            torch.cat([idx.reshape(-1) for _, idx in outs]))
+
+
+@support_score_op.register_kernel("cuda")
+def _support_score_cuda(a_list, b_list, fused):
+    out = _launch(a_list, b_list)
+    (fused_support_score if fused else grouped_support_score).launches += 1
+    return out
+
+
+@support_score_op.register_fake
+def _support_score_fake(a_list, b_list, fused):
+    _, n = output_offsets(
+        [(a.shape[0], 0, b.shape[2], 0) for a, b in zip(a_list, b_list)])
+    return (a_list[0].new_empty(n),
+            a_list[0].new_empty(n, dtype=torch.int32))
 
 
 FACT_NAMES = (
@@ -217,12 +252,20 @@ def kernel_facts() -> list[dict]:
 
 
 def _scores(wrapper, a_list, b_list):
-    """[(best, idx)] per group: the plain version on the CPU, one kernel
-    launch for CUDA tensors, counted in ``wrapper.launches``."""
-    if _device_of([*a_list, *b_list]).type == "cpu":
-        return [support_score_plain(a, b) for a, b in zip(a_list, b_list)]
-    outs = _launch(list(a_list), list(b_list))
-    wrapper.launches += 1
+    """[(best, idx)] per group, through the op: the plain version on the
+    CPU, one kernel launch for CUDA tensors, counted in
+    ``wrapper.launches``. The groups' outputs are views of the op's two
+    flat buffers."""
+    _device_of([*a_list, *b_list])  # raises on mixed or other devices
+    best, idx = support_score_op(
+        list(a_list), list(b_list), wrapper is fused_support_score
+    )
+    outs, o = [], 0
+    for a, b in zip(a_list, b_list):
+        m, l = a.shape[0], b.shape[2]
+        outs.append((best[o:o + m * l].view(m, l),
+                     idx[o:o + m * l].view(m, l)))
+        o += m * l
     return outs
 
 
@@ -232,9 +275,9 @@ class _SupportScore(torch.autograd.Function):
     ``apply(wrapper, g, *a_list, *b_list)`` returns ``(*bests, *idxs)``;
     ``wrapper`` is the public function whose ``launches`` count the kernel's
     launches. The idxs are not differentiable. Saved for backward: a, b and
-    idx of every group; on the card the outputs are views of the launch's
-    buffers, and the float one (outputs and packed-B scratch) is not saved,
-    so it is freed with the last view of a ``best``.
+    idx of every group; the outputs are views of the op's two flat
+    buffers, and the float one is not saved, so it is freed with the last
+    view of a ``best``.
 
     Backward, per group: the output gradient g [M, L] is scattered to the
     chosen permutation, gp[m, idx[m, l], l] = g[m, l] (zero elsewhere), then
@@ -304,3 +347,28 @@ def grouped_support_score(a_list, b_list):
 
 
 grouped_support_score.launches = 0
+
+
+# The scorer's wrappers, whose ``launches`` a captured graph's replays add to.
+SCORERS = (fused_support_score, grouped_support_score)
+
+
+def launch_counts() -> List[int]:
+    """The ``launches`` of every wrapper in ``SCORERS``."""
+    return [w.launches for w in SCORERS]
+
+
+def take_launches(before: Sequence[int]) -> List[int]:
+    """The launches counted since ``launch_counts()`` gave ``before``,
+    taken back from the counts: what a CUDA graph capture recorded, which
+    ran nothing. Each replay adds them with ``add_launches``."""
+    taken = [w.launches - n for w, n in zip(SCORERS, before)]
+    for w, n in zip(SCORERS, before):
+        w.launches = n
+    return taken
+
+
+def add_launches(counts: Sequence[int]) -> None:
+    """Count one replay's launches (``take_launches``)."""
+    for w, n in zip(SCORERS, counts):
+        w.launches += n

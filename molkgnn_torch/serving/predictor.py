@@ -1,9 +1,25 @@
 """Inference / serving path: trained weights -> batched predictor.
 
-Port of ``molkgnn_tpu/serving/predictor.py::Predictor``: chunked batching
-of any number of molecules through one fixed-shape ``BatchSpec`` (the last
-partial chunk is padded and its padding masked out), raw logits or sigmoid
-probabilities, and optional graph embeddings.
+Port of ``molkgnn_tpu/serving/predictor.py`` for the kgnn batch family on
+one device:
+
+  * ``predict_graphs``: chunked batching of any number of molecules through
+    one fixed-shape ``BatchSpec`` (each chunk packed on the host, the last
+    padded and its padding masked out), raw logits or sigmoid
+    probabilities, and optional graph embeddings;
+  * ``screen_library``: a whole library scored from the device. Each slab
+    of molecules is flat-packed once and copied to the device, every batch
+    is assembled there, and the slab's id blocks go through one CUDA graph
+    replayed per block (``serving/blocks.py``), with one readback a slab;
+  * ``predict_smiles``: SMILES in (the port's chemistry), scores out, NaN
+    where a SMILES does not parse;
+  * ``export``/``load_exported``: the eval forward as a ``torch.export``
+    program (the scorer kernel a registered op in it) with the
+    ``BatchSpec``; loading needs no model code.
+
+The point-cloud and ChIRoNet batch families (``PointBatchSpec``,
+``ChiroBatchSpec``) are not ported yet (ROADMAP A11): a spec of another
+family raises. Data-parallel screening (``mesh=``) is ROADMAP A12.
 
 On the card, float32 products run in full float32: TF32 is switched off
 for matrix products and cuDNN, because the permutation argmax of the score
@@ -12,15 +28,23 @@ products would otherwise move with the lost digits.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
+import json
+import time
 from typing import List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
-from molkgnn_torch.graphs.batch import BatchSpec, batch_graphs
+from molkgnn_torch.graphs.batch import BatchSpec, GraphBatch
 from molkgnn_torch.graphs.molgraph import MolGraph
 from molkgnn_torch.training.metrics import sigmoid
+
+# extra_files entry of an exported artifact: the BatchSpec and the device
+# the program was exported on.
+SPEC_FILE = "molkgnn_spec.json"
 
 
 def resolve_device(device: Optional[str | torch.device]) -> torch.device:
@@ -35,6 +59,25 @@ def resolve_device(device: Optional[str | torch.device]) -> torch.device:
     return device
 
 
+def _require_kgnn(spec) -> None:
+    if not isinstance(spec, BatchSpec):
+        raise NotImplementedError(
+            f"the {type(spec).__name__} batch family is not ported to "
+            "molkgnn_torch yet (ROADMAP A11); only kgnn's BatchSpec is"
+        )
+
+
+def host_pipeline_for_spec(spec):
+    """(mol -> graph featurizer, collate) for a spec's batch family: the
+    kgnn family's ``mol_to_graph`` and ``batch_graphs``. Another family
+    raises (ROADMAP A11)."""
+    _require_kgnn(spec)
+    from molkgnn_torch.chem.features import mol_to_graph
+    from molkgnn_torch.graphs.batch import batch_graphs
+
+    return mol_to_graph, batch_graphs
+
+
 class Predictor:
     """Wraps a GNNModel and its weights for fixed-shape batched inference."""
 
@@ -44,15 +87,48 @@ class Predictor:
         state_dict: Mapping[str, torch.Tensor],
         spec: BatchSpec,
         device: Optional[str | torch.device] = None,
+        collate=None,
     ):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
+        self.collate = collate or host_pipeline_for_spec(spec)[1]
         model.load_state_dict(state_dict, strict=True)
         self.model = model.to(self.device).eval()
         self.spec = spec
+        # Per slab of the last screen_library call: molecules, and the host
+        # seconds of the capacity check and of the flat packing (with the
+        # copy to the device).
+        self.screen_slabs: List[dict] = []
 
+    @classmethod
+    def from_trainer(cls, trainer, tag: str = "last") -> "Predictor":
+        """A Predictor of the trainer's checkpoint ``tag`` (its current
+        weights if there is none), on its device. The model is a copy: the
+        trainer's own stays as it is."""
+        ck = trainer._ckpts.get(tag)
+        sd = ck["model"] if ck is not None else trainer.model.state_dict()
+        # The dropout generators are the run's: the copy, in eval mode,
+        # draws nothing and shares none of them.
+        memo = {id(m.generator): None for m in trainer.model.modules()
+                if getattr(m, "generator", None) is not None}
+        model = copy.deepcopy(trainer.model, memo)
+        return cls(model, sd, trainer.spec, device=trainer.device)
+
+    @classmethod
+    def from_checkpoint(
+        cls, model: nn.Module, path: str, spec: BatchSpec, collate=None,
+        device: Optional[str | torch.device] = None,
+    ) -> "Predictor":
+        """A Predictor of a port checkpoint (``Trainer``'s
+        ``checkpoint_dir/{tag}``, ``path`` without its ``.pt``)."""
+        from molkgnn_torch.training.checkpoint import load_checkpoint
+
+        return cls(model, load_checkpoint(path)["model"], spec,
+                   device=device, collate=collate)
+
+    # ------------------------------------------------------------------
     @torch.inference_mode()
     def predict_graphs(
         self,
@@ -65,7 +141,7 @@ class Predictor:
         embs: List[torch.Tensor] = []
         masks: List[np.ndarray] = []
         for start in range(0, len(graphs), b):
-            batch = batch_graphs(list(graphs[start : start + b]), self.spec)
+            batch = self.collate(list(graphs[start : start + b]), self.spec)
             masks.append(batch.graph_mask.numpy())
             pred, emb = self.model(batch.to(self.device))
             scores.append(pred)
@@ -88,3 +164,206 @@ class Predictor:
             )
             return out, emb_out
         return out
+
+    # ------------------------------------------------------------------
+    def _batch_resource_counts(self, graphs):
+        """Per-graph resource counts, the spec's capacity vector and their
+        names: the host-side overflow check that the device gather cannot
+        make (it truncates silently)."""
+        _require_kgnn(self.spec)
+        spec = self.spec
+        rows = [
+            (g.num_nodes, g.num_edges)
+            + tuple(g.with_fields().fields[d].count for d in range(1, 5))
+            for g in graphs
+        ]
+        caps = (spec.num_nodes, spec.num_edges) + tuple(spec.deg_capacity)
+        names = ("nodes", "edges", "deg1", "deg2", "deg3", "deg4")
+        return (np.asarray(rows, np.int64).reshape(-1, len(caps)),
+                np.asarray(caps, np.int64), names)
+
+    def screen_library(
+        self,
+        graphs: Sequence[MolGraph],
+        probabilities: bool = False,
+        slab: int = 100_000,
+        mesh=None,
+    ) -> np.ndarray:
+        """Scores of a whole molecule library, in order: the reference's
+        production use (ranking a PubChem HTS library by score).
+
+        Each slab of ``slab`` molecules is flat-packed on the host once
+        (``PackedGraphs``) and copied to the device (``DeviceDataset``);
+        every padded batch is assembled there and the slab's id blocks are
+        scored by one CUDA graph replayed per block on the card (eager
+        forwards on the CPU), with one readback a slab. Every batch is
+        checked on the host against the spec's capacities first: the device
+        gather would truncate an overflowing batch silently, so a library
+        with molecules larger than the spec was built for raises
+        ``ValueError``. Each slab captures its own graph (one eager forward
+        of its first block); see ``serving/blocks.py``. The graph and the
+        slab's device tensors are released when the call returns.
+
+        ``mesh`` (data-parallel screening) is not ported yet (ROADMAP A12).
+        """
+        if mesh is not None:
+            raise NotImplementedError(
+                "screen_library(mesh=...): data-parallel screening is not "
+                "ported to molkgnn_torch yet (ROADMAP A12)"
+            )
+        from molkgnn_torch.graphs.device_pack import DeviceDataset, pad_ids
+        from molkgnn_torch.graphs.packed import PackedGraphs
+        from molkgnn_torch.serving.blocks import BlockScorer
+
+        blocks = BlockScorer(self.model, self.spec)
+        b = self.spec.num_graphs
+        counts, caps, names = self._batch_resource_counts(graphs)
+        self.screen_slabs = []
+        outs = []
+        for s0 in range(0, len(graphs), slab):
+            t0 = time.perf_counter()
+            chunk = list(graphs[s0 : s0 + slab])
+            ids = np.arange(len(chunk), dtype=np.int32)
+            idm = np.stack(
+                [pad_ids(ids[s : s + b], b) for s in range(0, len(chunk), b)]
+            )
+            rows = np.zeros((idm.size, len(caps)), np.int64)
+            rows[: len(chunk)] = counts[s0 : s0 + len(chunk)]
+            sums = rows.reshape(idm.shape[0], b, len(caps)).sum(axis=1)
+            over_rows = np.nonzero((sums > caps).any(axis=1))[0]
+            if over_rows.size:
+                over = [
+                    f"{n}: {int(v)} > cap {int(c)}"
+                    for n, v, c in zip(names, sums[over_rows[0]], caps)
+                    if v > c
+                ]
+                raise ValueError(
+                    "screen_library: batch exceeds the spec's capacities "
+                    f"({'; '.join(over)}) — the library contains molecules "
+                    "larger than the spec was built for; rebuild the spec "
+                    "over the library (spec_for_graphs)"
+                )
+            t1 = time.perf_counter()
+            data = DeviceDataset.from_packed(
+                PackedGraphs.from_graphs(chunk), self.device
+            )
+            t2 = time.perf_counter()
+            preds = blocks(
+                data, torch.as_tensor(idm, device=self.device)
+            ).cpu().numpy().reshape(-1)
+            outs.append(preds[(idm >= 0).reshape(-1)])
+            self.screen_slabs.append({
+                "molecules": len(chunk), "check_s": t1 - t0,
+                "pack_s": t2 - t1,
+            })
+        out = np.concatenate(outs) if outs else np.zeros((0,))
+        if probabilities:
+            out = sigmoid(out)
+        return out
+
+    # ------------------------------------------------------------------
+    def export(self, path: str):
+        """Write the eval forward as a ``torch.export`` program at ``path``
+        (``torch.export.save``), with the ``BatchSpec`` in its extra files:
+        an artifact that ``load_exported`` serves without the model code.
+        Returns the ``ExportedProgram``.
+
+        The program takes the ``GraphBatch`` leaves (``GraphBatch.leaves``,
+        the JAX package's tree order) at the spec's shapes and returns
+        (prediction [B], graph embedding [B, H]). It is traced on this
+        Predictor's device, whose tensors it keeps (parameters, and the
+        devices of tensors the forward creates), so it serves on that
+        device type only. With ``use_kernel=True`` the scorer is one
+        ``molkgnn.support_score`` node a layer."""
+        leaves = self.collate([_two_atoms(self.spec)], self.spec).to(
+            self.device).leaves()
+        with torch.no_grad():
+            program = torch.export.export(_LeafForward(self.model),
+                                          tuple(leaves))
+        meta = {"spec": dataclasses.asdict(self.spec),
+                "device": self.device.type}
+        with open(path, "wb") as f:  # a file object: any name will do
+            torch.export.save(program, f,
+                              extra_files={SPEC_FILE: json.dumps(meta)})
+        return program
+
+    @staticmethod
+    def load_exported(path: str, device: Optional[str | torch.device] = None):
+        """Load an ``export`` artifact; returns ``(call(batch) -> (pred,
+        emb), spec)``. No model code is imported: only the scorer op's
+        registration (``ops/support_score.py``). ``device`` (default the
+        card) must be the device type the program was exported on; the
+        batch is copied there, and the outputs stay there."""
+        import molkgnn_torch.ops.support_score  # noqa: F401 (the op)
+
+        device = resolve_device(device)
+        extra = {SPEC_FILE: ""}
+        with open(path, "rb") as f:
+            program = torch.export.load(f, extra_files=extra)
+        meta = json.loads(extra[SPEC_FILE])
+        if meta["device"] != device.type:
+            raise ValueError(
+                f"{path} was exported on {meta['device']}; it serves there "
+                f"only (export it again on {device.type})"
+            )
+        fields = meta["spec"]
+        spec = BatchSpec(**{**fields,
+                            "deg_capacity": tuple(fields["deg_capacity"])})
+        fn = program.module()
+
+        def call(batch: GraphBatch):
+            with torch.inference_mode():
+                return fn(*[t.to(device) for t in batch.leaves()])
+
+        return call, spec
+
+    # ------------------------------------------------------------------
+    def predict_smiles(
+        self,
+        smiles: Sequence[str],
+        probabilities: bool = False,
+        embed_seed: int = 42,
+    ) -> np.ndarray:
+        """SMILES -> scores; unparseable molecules get NaN (positions are
+        preserved)."""
+        from molkgnn_torch.chem.embed import smiles_to_graph
+
+        graphs: List[Optional[MolGraph]] = [
+            smiles_to_graph(s, seed=embed_seed) for s in smiles
+        ]
+        valid = [g for g in graphs if g is not None]
+        scores = (
+            self.predict_graphs(valid, probabilities=probabilities)
+            if valid
+            else np.zeros((0,))
+        )
+        out = np.full(len(smiles), np.nan)
+        k = 0
+        for i, g in enumerate(graphs):
+            if g is not None:
+                out[i] = scores[k]
+                k += 1
+        return out
+
+
+class _LeafForward(nn.Module):
+    """``model`` called on a GraphBatch rebuilt from its leaves: the
+    module ``export`` traces."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, *leaves):
+        return self.model(GraphBatch.from_leaves(leaves))
+
+
+def _two_atoms(spec: BatchSpec) -> MolGraph:
+    """The template molecule of ``export``'s example batch: only its
+    shapes and types are traced."""
+    return MolGraph(
+        x=np.zeros((2, spec.node_dim), np.float32),
+        p=np.zeros((2, spec.pos_dim), np.float32),
+        edge_index=np.array([[0, 1], [1, 0]], np.int32),
+        edge_attr=np.zeros((2, spec.edge_dim), np.float32),
+    )

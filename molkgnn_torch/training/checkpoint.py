@@ -5,6 +5,13 @@ checkpoint files: ``torch.save`` of a payload of tensors and plain values
 (moved to the CPU), at ``path + ".pt"``, read back with
 ``weights_only=True``.
 
+``from_torch_state_dict``/``load_torch_checkpoint`` import a checkpoint of
+the reference PyTorch implementation (a PL ``.ckpt`` or a raw
+``state_dict``) into the port's kgnn model: the port's ``state_dict()``
+already has the reference's keys, so what they port from
+``molkgnn_tpu/training/checkpoint.py`` is its checking: every target key
+found, every shape equal, no key left over but the reference's dead ones.
+
 ``from_jax_variables`` takes a ``GNNModel(MolKGNNNet)`` variable tree of the
 JAX package (``{'params': ..., 'batch_stats': ...}``, leaves as numpy
 arrays) and returns the port's ``state_dict``, whose keys are those of the
@@ -51,6 +58,77 @@ def save_checkpoint(path: str, payload: Dict[str, Any]) -> None:
 def load_checkpoint(path: str) -> Dict[str, Any]:
     """The payload of ``save_checkpoint(path, ...)``, tensors on the CPU."""
     return torch.load(path + SUFFIX, map_location="cpu", weights_only=True)
+
+
+# Reference GNNModel members that exist but are dead in its forward
+# (lin1/lin2 are built beside ffn and never applied; the encoder's
+# graph_embedding_linear is never called); SchNet's Gaussian offsets are a
+# constant buffer. num_batches_tracked (BatchNorm bookkeeping) is skipped
+# too. The same list as the JAX package's importer.
+_IGNORED_TORCH_KEYS = (
+    "lin1.", "lin2.", "gnn_model.graph_embedding_linear.",
+    "gnn_model.dist_emb.offset",
+)
+
+
+def from_torch_state_dict(
+    model: torch.nn.Module, state_dict: Any, prefix: str = ""
+) -> Dict[str, torch.Tensor]:
+    """The port's ``state_dict`` for ``model`` from a reference checkpoint's
+    ``state_dict`` (str keys to tensors or arrays); load it with
+    ``model.load_state_dict(sd, strict=True)``.
+
+    The import is driven by the model's own keys: each, with ``prefix``
+    put before it, must be in ``state_dict`` (else ``KeyError``) with the
+    same shape (else ``ValueError``); values are cast to the model's
+    dtypes. A key of ``state_dict`` that no target took raises
+    ``ValueError``, except the reference's dead keys (``_IGNORED_TORCH_KEYS``
+    after the prefix) and ``*num_batches_tracked``. Fixed kernel sets are
+    not ported (ROADMAP A4), so a ``fixed_kernelconv_set`` key is left
+    over and raises, as with the JAX CLI's model, which builds none.
+    """
+    sd = {str(k): v for k, v in dict(state_dict).items()}
+    out: Dict[str, torch.Tensor] = {}
+    for name, leaf in model.state_dict().items():
+        key = prefix + name
+        if key not in sd:
+            raise KeyError(f"reference state_dict missing '{key}' "
+                           f"(for {name})")
+        value = sd[key]
+        value = (value.detach().cpu() if isinstance(value, torch.Tensor)
+                 else torch.as_tensor(np.asarray(value)))
+        if tuple(value.shape) != tuple(leaf.shape):
+            raise ValueError(
+                f"shape mismatch at '{key}': reference "
+                f"{tuple(value.shape)} vs model {tuple(leaf.shape)}"
+            )
+        out[name] = value.to(leaf.dtype)
+    used = {prefix + name for name in out}
+    leftovers = [
+        k for k in sd
+        if k not in used
+        and not k[len(prefix):].startswith(_IGNORED_TORCH_KEYS)
+        and not k.endswith("num_batches_tracked")
+    ]
+    if leftovers:
+        raise ValueError(
+            "reference state_dict keys with no target in the model "
+            f"(wrong model config?): {sorted(leftovers)[:8]}"
+        )
+    return out
+
+
+def load_torch_checkpoint(
+    path: str, model: torch.nn.Module, prefix: str = ""
+) -> Dict[str, torch.Tensor]:
+    """``from_torch_state_dict`` of a torch-saved file: a raw
+    ``state_dict`` or a PL ``.ckpt`` (``{'state_dict': ...}``). The file is
+    unpickled in full (a PL checkpoint holds more than tensors), so load
+    only files you trust."""
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(obj, dict) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    return from_torch_state_dict(model, obj, prefix=prefix)
 
 
 def _flatten(tree: Any, prefix: Tuple[str, ...] = ()):

@@ -26,7 +26,12 @@ Port of ``molkgnn_tpu/training/trainer.py`` (its single-device paths):
     (a replay consumes the generators' Philox offsets as the eager step
     does). A failed capture raises. On the CPU, K eager steps;
   * one readback of the epoch's losses, then validation (and optionally the
-    train split in eval mode, reported with a ``_no_dropout`` suffix);
+    train split in eval mode, reported with a ``_no_dropout`` suffix). On
+    the device-data path an evaluation scores the split's id blocks through
+    ``serving/blocks.py::BlockScorer``: on the card one eval forward
+    captured as a CUDA graph and replayed per block, one readback (the
+    counterpart of the JAX package's scanned evaluation); the host-loader
+    path evaluates eagerly, batch by batch;
   * best checkpoints per monitored metric plus ``last``, kept in memory and
     optionally written to ``checkpoint_dir``; ``test`` evaluates each and
     writes ``test_result.log`` and ``test_sample_scores_{tag}.log``;
@@ -79,9 +84,11 @@ from molkgnn_torch.graphs.device_pack import (
 from molkgnn_torch.graphs.packed import PackedGraphs
 from molkgnn_torch.models.common import Dropout
 from molkgnn_torch.ops.support_score import (
-    fused_support_score,
-    grouped_support_score,
+    add_launches,
+    launch_counts,
+    take_launches,
 )
+from molkgnn_torch.serving.blocks import BlockScorer
 from molkgnn_torch.serving.predictor import resolve_device
 from molkgnn_torch.training.checkpoint import (
     SUFFIX,
@@ -108,8 +115,6 @@ GRAPH_WARMUP = 2
 # Salt of the device sampler's seed, so that its stream never meets the
 # dropout stream's (the JAX package folds the same salt into its key).
 SAMPLE_SALT = 0x5A17
-# The scorer wrappers whose ``launches`` a captured step's replays add to.
-SCORERS = (fused_support_score, grouped_support_score)
 
 
 @dataclasses.dataclass
@@ -247,8 +252,10 @@ class Trainer:
         self._graph = None
         self._graph_ids = None
         self._graph_loss = None
-        self._graph_launches = [0] * len(SCORERS)
+        self._graph_launches = None
         self._graph_warm = 0
+        # Evaluation over id blocks of the device-resident dataset.
+        self._blocks = BlockScorer(self.model, spec)
 
     @property
     def updates(self) -> int:
@@ -312,17 +319,13 @@ class Trainer:
         for gen in (self.dropout_rng, self.sample_rng):
             graph.register_generator_state(gen)
         step = self.step
-        before = [w.launches for w in SCORERS]
+        before = launch_counts()
         with torch.cuda.graph(graph):
             self._graph_loss = self._device_step()
         # The capture runs nothing: the steps and the scorer launches it
         # recorded are counted at each replay instead.
         self.step = step
-        self._graph_launches = [
-            w.launches - n for w, n in zip(SCORERS, before)
-        ]
-        for w, n in zip(SCORERS, self._graph_launches):
-            w.launches -= n
+        self._graph_launches = take_launches(before)
         self._graph = graph
 
     def _graph_step(self, ids: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -348,8 +351,7 @@ class Trainer:
             self._capture()
         self._graph.replay()
         self.step += 1
-        for w, n in zip(SCORERS, self._graph_launches):
-            w.launches += n
+        add_launches(self._graph_launches)
         return self._graph_loss.clone()
 
     def _epoch_steps(self) -> List[torch.Tensor]:
@@ -391,10 +393,10 @@ class Trainer:
                           cfg.batch_size)
 
     # ------------------------------------------------------------------
-    @torch.no_grad()
     def _predict_ids(self, ids: np.ndarray):
         """(labels, predictions) of the graphs ``ids``, assembled on the
-        device in batches; one copy of the ids to the device and one
+        device in batches and scored block by block (``BlockScorer``: graph
+        replays on the card); one copy of the ids to the device and one
         readback of the predictions."""
         bs = self.config.batch_size
         ids = np.asarray(ids)
@@ -402,11 +404,9 @@ class Trainer:
             [pad_ids(ids[s : s + bs], bs) for s in range(0, len(ids), bs)]
         )
         self.model.eval()
-        preds = [
-            self.model(gather_batch(self._device_data, row, self.spec))[0]
-            for row in torch.as_tensor(idm, device=self.device)
-        ]
-        flat = torch.cat(preds).cpu().numpy()
+        preds = self._blocks(self._device_data,
+                             torch.as_tensor(idm, device=self.device))
+        flat = preds.cpu().numpy().reshape(-1)
         true = np.array([self.dataset.graphs[i].y for i in ids], np.float32)
         return true, flat[(idm >= 0).reshape(-1)]
 

@@ -366,3 +366,156 @@ def test_cuda_resumed_graphed_run_equals_uninterrupted(tmp_path):
     np.testing.assert_allclose(second.step_losses, straight.step_losses[16:],
                                rtol=1e-5)
     assert _max_param_diff(straight, second) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged", "flagship_nhop"])
+def test_cuda_op_matches_plain(case):
+    """The registered op's CUDA implementation, grouped (all groups in one
+    launch) and fused (one group), against its plain version: the flat
+    outputs hold each group's best and idx back to back, and the launch is
+    counted on the wrapper that ``fused`` names."""
+    _needs_card()
+    a_list, b_list = _unit_operands(np.random.default_rng(6), CASES[case])
+    for fused, groups in ((False, [list(range(len(a_list)))]),
+                          (True, [[i] for i in range(len(a_list))])):
+        for group in groups:
+            a = [a_list[i] for i in group]
+            b = [b_list[i] for i in group]
+            before = ss.launch_counts()
+            best, idx = torch.ops.molkgnn.support_score(a, b, fused)
+            torch.cuda.synchronize()
+            after = ss.launch_counts()
+            assert after[0] - before[0] == int(fused)  # fused_support_score
+            assert after[1] - before[1] == int(not fused)
+            outs, o = [], 0
+            for x, y in zip(a, b):
+                m, l = x.shape[0], y.shape[2]
+                outs.append((best[o:o + m * l].view(m, l),
+                             idx[o:o + m * l].view(m, l)))
+                o += m * l
+            assert best.numel() == idx.numel() == o
+            _assert_matches_plain(outs, a, b)
+
+
+def _tie_free_model(num_layers=2, seed=4):
+    from molkgnn_torch.models.kgnn import MolKGNNNet
+    from molkgnn_torch.training.model import GNNModel
+
+    gen = torch.Generator().manual_seed(seed)
+    return GNNModel(MolKGNNNet(num_layers=num_layers, use_kernel=True,
+                               generator=gen), generator=gen)
+
+
+def _tie_free_graphs(n, seed=8):
+    from molkgnn_torch.data.synthetic import tie_free_molgraph
+
+    rng = np.random.default_rng(seed)
+    return [tie_free_molgraph(rng) for _ in range(n)]
+
+
+@pytest.mark.cuda
+def test_cuda_captured_evaluation_equals_eager():
+    """The block scorer on the card (first block eager, then one captured
+    forward replayed per block) against eager forwards, within 1e-5 on
+    tie-free molecules; 2 scorer launches a block (2 layers), replays
+    counted, on the capturing call and on a call that only replays."""
+    _needs_card()
+    from molkgnn_torch.graphs.batch import spec_for_graphs
+    from molkgnn_torch.graphs.device_pack import (
+        DeviceDataset,
+        gather_batch,
+        pad_ids,
+    )
+    from molkgnn_torch.graphs.packed import PackedGraphs
+    from molkgnn_torch.serving.blocks import BlockScorer
+
+    graphs = _tie_free_graphs(150)
+    spec = spec_for_graphs(graphs, 32)
+    data = DeviceDataset.from_packed(PackedGraphs.from_graphs(graphs), "cuda")
+    ids = np.arange(150, dtype=np.int32)
+    idm = torch.as_tensor(np.stack(
+        [pad_ids(ids[s:s + 32], 32) for s in range(0, 150, 32)]),
+        device="cuda")
+    model = _tie_free_model().cuda().eval()
+    with torch.no_grad():
+        want = torch.stack([model(gather_batch(data, row, spec))[0]
+                            for row in idm])
+    scorer = BlockScorer(model, spec)
+    for _ in range(2):
+        before = ss.grouped_support_score.launches
+        got = scorer(data, idm)
+        torch.cuda.synchronize()
+        assert ss.grouped_support_score.launches - before == 2 * 5
+        assert scorer._graph is not None
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_screen_library_across_two_slabs_matches_predict_graphs():
+    _needs_card()
+    from molkgnn_torch.graphs.batch import spec_for_graphs
+    from molkgnn_torch.serving.predictor import Predictor
+
+    graphs = _tie_free_graphs(300, seed=9)
+    spec = spec_for_graphs(graphs, 32)
+    model = _tie_free_model()
+    pred = Predictor(model, model.state_dict(), spec)
+    want = pred.predict_graphs(graphs)
+    before = ss.grouped_support_score.launches
+    got = pred.screen_library(graphs, slab=160)
+    assert [s["molecules"] for s in pred.screen_slabs] == [160, 140]
+    # 5 + 5 blocks of 32, 2 launches each.
+    assert ss.grouped_support_score.launches - before == 2 * 10
+    assert got.shape == (300,) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_exported_program_runs_the_kernel(tmp_path):
+    """Exported on the card and loaded without the model: the program's
+    scorer nodes launch the kernel (counted) and it scores as the
+    Predictor does."""
+    _needs_card()
+    from molkgnn_torch.graphs.batch import batch_graphs, spec_for_graphs
+    from molkgnn_torch.serving.predictor import Predictor
+
+    graphs = _tie_free_graphs(64, seed=10)
+    spec = spec_for_graphs(graphs, 32)
+    model = _tie_free_model()
+    pred = Predictor(model, model.state_dict(), spec)
+    path = str(tmp_path / "model.pt2")
+    program = pred.export(path)
+    targets = [str(n.target) for n in program.graph.nodes]
+    assert sum("molkgnn.support_score" in t for t in targets) == 2
+    call, got_spec = Predictor.load_exported(path)
+    assert got_spec == spec
+    before = ss.grouped_support_score.launches
+    out, emb = call(batch_graphs(graphs[:32], spec))
+    torch.cuda.synchronize()
+    assert ss.grouped_support_score.launches - before == 2
+    assert out.device.type == "cuda" and emb.shape == (32, 32)
+    np.testing.assert_allclose(out.cpu().numpy(),
+                               pred.predict_graphs(graphs[:32]),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_train_capture_unchanged_by_an_evaluation_capture(tmp_path):
+    """2 epochs of 8 steps with scan_steps=4, so that the evaluation graph
+    is captured between the train step's replays (validation after epoch
+    0), against eager steps: losses within 1e-5 relative, parameters
+    within 1e-5; the scorer's launches as counted for eager steps."""
+    _needs_card()
+    runs = {}
+    for k in (1, 4):
+        t = _small_run(tmp_path, f"k{k}", scan_steps=k, max_epochs=2)
+        before = ss.grouped_support_score.launches
+        t.fit()
+        runs[k] = (t, ss.grouped_support_score.launches - before)
+    eager, graphed = runs[1][0], runs[4][0]
+    assert graphed._graph is not None and graphed._blocks._graph is not None
+    np.testing.assert_allclose(graphed.step_losses, eager.step_losses,
+                               rtol=1e-5)
+    assert _max_param_diff(eager, graphed) <= 1e-5
+    assert runs[1][1] == runs[4][1] == 2 * 16 + 2 * 2

@@ -129,6 +129,9 @@ import molkgnn_torch.data.qsar
 import molkgnn_torch.data.d4dchp
 import molkgnn_torch.data.preprocess
 import molkgnn_torch.cli.entry
+import molkgnn_torch.cli.import_ckpt
+import molkgnn_torch.cli.screen
+import molkgnn_torch.serving.blocks
 import chip_smoke
 loaded = sorted(m for m in sys.modules if banned(m))
 assert not loaded, loaded
@@ -166,3 +169,40 @@ def test_port_sources_import_no_jax():
                 continue
             for name in names:
                 assert name.split(".")[0] not in BANNED_ROOTS, (path, name)
+
+
+def test_load_exported_needs_no_model_code(tmp_path):
+    """An exported model loads and scores in a process that imports
+    nothing under molkgnn_torch/models (nor jax): load_exported registers
+    the scorer op and rebuilds the batch leaves, no more."""
+    graphs = random_dataset(seed=0, num_graphs=8)
+    spec = spec_for_graphs(graphs, 4)
+    model = GNNModel(MolKGNNNet(**CFG, use_kernel=True))
+    pred = Predictor(model, model.state_dict(), spec, device="cpu")
+    path = str(tmp_path / "model.pt2")
+    pred.export(path)
+    want = pred.predict_graphs(graphs[:4])
+    np.save(tmp_path / "want.npy", want)
+    code = f"""
+import sys
+import numpy as np
+from molkgnn_torch.data.synthetic import random_dataset
+from molkgnn_torch.graphs.batch import batch_graphs
+from molkgnn_torch.serving.predictor import Predictor
+
+call, spec = Predictor.load_exported({path!r}, device="cpu")
+pred, emb = call(batch_graphs(random_dataset(seed=0, num_graphs=8)[:4], spec))
+want = np.load({str(tmp_path / "want.npy")!r})
+np.testing.assert_allclose(pred.numpy(), want, rtol=1e-6, atol=1e-6)
+loaded = sorted(m for m in sys.modules if m.startswith("molkgnn_torch.models")
+                or m.split(".")[0] in ("jax", "molkgnn_tpu"))
+assert not loaded, loaded
+print("clean")
+"""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "clean"
