@@ -95,6 +95,26 @@ Phases, in order; any failure exits non-zero and prints no result line:
               Trainer's evaluation of phase 6's 6,187 molecules (194
               batches of 32) captured against the eager batch loop it
               replaced, ABBA, with 4 launches a batch.
+  8. points:  SchNet (8192 of phase 3's molecules), DimeNet++ (2048) and
+              SphereNet (512) at their published widths (the encoders'
+              defaults), random weights from the seed. For each: (a) host
+              geometry and packing per 1,000 molecules; the batch, the
+              largest power of two <= 1024 whose train step on the
+              heaviest molecules peaks under 40 GiB, with its capacities;
+              (b) Trainer.fit, 2 epochs with device sampling, eager against
+              replayed (scan_steps=16): the first 3 losses within 1e-5
+              relative, train graphs/s of both; (c) predict_graphs end to
+              end, forward only and screen_library, graphs/s, ABCCBA; (d)
+              8 molecules on the card against the CPU: fp64 within 1e-9,
+              fp32 within 1e-4 of fp64 (relative to the largest value);
+              (e) gather_points equal to batch_points bit for bit; (f) the
+              mirror contract (SchNet and DimeNet++ invariant within 1e-5
+              relative, SphereNet not); (g) both scorer wrappers launch 0
+              times on every point path, counted; (h) SchNet through the
+              import and screen CLIs, the CSV within 1e-4 of a Predictor;
+              (i) the three enantiomer configurations through the CLI at
+              6,000 inactives (molkgnn_torch/tools/enantiomer.py),
+              printed beside the JAX-CPU records.
 
 The last lines are the records of the phases' numbers, the kernel record
 ({"kernels": [...]}), the card's name and power limit, and
@@ -133,6 +153,13 @@ SMOKE_INACTIVES = 6000
 # Phase 7(a): phase 4's molecules repeated into a library of 131,072.
 SCREEN_REPEAT = 16
 SLAB = 100_000
+# Phase 8: molecules of phase 3's set per point family (host enumeration
+# of triplets and torsion quads grows as atoms^3 and atoms^4), the device
+# memory a train step of the chosen batch stays under, and the family
+# taken through the import and screen CLIs.
+POINT_MOLECULES = {"schnet": 8192, "dimenet_pp": 2048, "spherenet": 512}
+POINT_MEMORY = 40 * 2**30
+POINT_EXPORT = "schnet"
 # The CLI epoch's evaluation at AID 1798's full counts while it ran eager,
 # batch by batch: 194 batches of 32 in 6.6 s on an NVIDIA H100 80GB HBM3 at
 # 700 W (PERF.md, section 5); phase 7(c) prints its own beside it.
@@ -986,8 +1013,8 @@ class Smoke:
                 f"{trainers[name][1]} a step, replays counted)")
         return rates
 
-    def replay_profile(self, trainer, what):
-        """One block of 16 replays of a captured step: the device time by
+    def replay_profile(self, trainer, what, n=16):
+        """One block of ``n`` replays of a captured step: the device time by
         CUDA events, and from torch.profiler the device busy time over the
         wall time (idle share) and the top kernels."""
         from torch.profiler import ProfilerActivity, profile
@@ -1000,7 +1027,7 @@ class Smoke:
         end = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
-        for _ in range(16):
+        for _ in range(n):
             trainer._graph_step()
         end.record()
         torch.cuda.synchronize()
@@ -1009,14 +1036,14 @@ class Smoke:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for _ in range(16):
+            for _ in range(n):
                 trainer._graph_step()
             torch.cuda.synchronize()
             prof_wall_ms = (time.perf_counter() - t0) * 1e3
         rows = device_rows(prof)
         busy = sum(r[0] for r in rows)
-        log(f"  {what}, 16 replays: {event_ms:.3f} ms by CUDA events in "
-            f"{wall_ms:.3f} ms wall ({event_ms / 16:.3f} ms a step; "
+        log(f"  {what}, {n} replays: {event_ms:.3f} ms by CUDA events in "
+            f"{wall_ms:.3f} ms wall ({event_ms / n:.3f} ms a step; "
             f"event time over wall {event_ms / wall_ms:.3f})")
         record = {"event_ms": event_ms, "wall_ms": wall_ms}
         if not rows:
@@ -1516,6 +1543,362 @@ class Smoke:
             "cli_valid_batches": valid_batches, "batches": nb,
             "seconds": times, "launches": eval_launches, "gap": gap}
 
+    # ------------------------------------------------------------ phase 8
+    def phase_points(self, graphs, tmp):
+        """SchNet, DimeNet++ and SphereNet at their published widths, each
+        through ingest, Trainer, Predictor, screening and the checks of
+        the module doc; then the enantiomer configurations through the CLI.
+        Every path counts the scorer's launches from 0: they must be 0."""
+        t_phase = time.perf_counter()
+        self.points_record, self.points_launches = {}, {}
+        for name, n in POINT_MOLECULES.items():
+            reset_launches()
+            self.points_record[name] = self.point_family(name, graphs[:n],
+                                                         tmp)
+            self.points_launches[name] = launch_counts()
+        reset_launches()
+        self.points_record["quality"] = self.point_quality(tmp)
+        self.points_launches["quality"] = launch_counts()
+        log(f"  scorer launches on the point paths (each counted from 0): "
+            f"{self.points_launches}")
+        if any(v for c in self.points_launches.values() for v in c.values()):
+            raise AssertionError("a scorer kernel launched on a point path")
+        secs = time.perf_counter() - t_phase
+        self.points_record["seconds"] = secs
+        log(f"  phase 8 took {secs:.1f} s")
+
+    def point_model(self, name, dtype=None):
+        """GNNModel of the family at its published width (the encoder's
+        defaults), random weights from the seed."""
+        from molkgnn_torch.models.registry import get_family
+        from molkgnn_torch.training.model import GNNModel
+
+        gen = self.torch.Generator().manual_seed(SEED)
+        model = GNNModel(get_family(name).make_encoder(generator=gen),
+                         generator=gen)
+        return model if dtype is None else model.to(dtype)
+
+    def point_step_peak(self, model, data, spec, ids):
+        """Peak device bytes of one forward and backward of the batch
+        ``ids`` (None when the card runs out of memory)."""
+        from molkgnn_torch.graphs.device_points import gather_points
+        from molkgnn_torch.training.model import bce_with_logits_loss
+
+        torch = self.torch
+        model.eval()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            batch = gather_points(data, ids, spec)
+            pred, _ = model(batch)
+            bce_with_logits_loss(pred, batch.y, batch.graph_mask).backward()
+            torch.cuda.synchronize()
+            return torch.cuda.max_memory_allocated()
+        except torch.cuda.OutOfMemoryError:
+            return None
+        finally:
+            batch = pred = None
+            model.zero_grad(set_to_none=True)
+            torch.cuda.empty_cache()
+
+    def point_family(self, name, mols, tmp):
+        import dataclasses
+        import gc
+
+        import numpy as np
+
+        from molkgnn_torch.data.dataset import QSAR_METRICS, Dataset, _split
+        from molkgnn_torch.graphs.device_pack import pad_ids
+        from molkgnn_torch.graphs.device_points import (
+            DevicePointDataset,
+            gather_points,
+        )
+        from molkgnn_torch.graphs.geometric import (
+            batch_points,
+            molecule_geometry,
+        )
+        from molkgnn_torch.models.registry import get_family
+        from molkgnn_torch.serving.predictor import Predictor
+        from molkgnn_torch.training.trainer import TrainConfig, Trainer
+
+        torch = self.torch
+        card = torch.cuda.get_device_name(0)
+        family = get_family(name)
+        rec = {"molecules": len(mols)}
+        log(f"  {name}: {len(mols)} synthetic molecules (phase 3's), "
+            "published width")
+
+        # (a) ingest: host geometry, then packing and the copy to the card,
+        # on copies of the molecules whose geometry cache is empty.
+        fresh = [dataclasses.replace(g) for g in mols]
+        geo = family.make_spec([], 1)  # the family's cutoff and levels
+        t0 = time.perf_counter()
+        levels = [molecule_geometry(g, geo.cutoff, geo.with_triplets,
+                                    geo.with_torsion) for g in fresh]
+        geo_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        data = DevicePointDataset.from_graphs(fresh, geo, "cuda")
+        torch.cuda.synchronize()
+        pack_s = time.perf_counter() - t0
+        sizes = [int(sum(x[k].shape[1] for x in levels)) for k in range(3)]
+        per_k = 1e3 / len(mols)
+        mols = fresh  # their geometry is cached from here on
+        rec["ingest"] = {"geometry_s": geo_s, "pack_s": pack_s,
+                         "per_1000_s": (geo_s + pack_s) * per_k,
+                         "edges": sizes[0], "triplets": sizes[1],
+                         "quads": sizes[2]}
+        log(f"    (a) ingest: geometry {geo_s:.3f} s + packing and copy "
+            f"{pack_s:.3f} s = {(geo_s + pack_s) * per_k:.3f} s per 1,000 "
+            f"molecules (host); {sizes[0]} edges, {sizes[1]} triplets, "
+            f"{sizes[2]} quads in all")
+
+        # The batch: the largest power of two <= 1024 (and <= the number
+        # of molecules) whose train step on the heaviest molecules peaks
+        # under POINT_MEMORY.
+        model = self.point_model(name).cuda()
+        heavy = np.argsort([-(x[2].shape[1] or x[1].shape[1] or x[0].shape[1])
+                            for x in levels], kind="stable")
+        probes = []
+        for b in (1024, 512, 256, 128, 64, 32, 16, 8):
+            if b > len(mols):
+                continue
+            spec = family.make_spec(fresh, b)
+            ids = torch.as_tensor(heavy[:b].astype(np.int32), device="cuda")
+            peak = self.point_step_peak(model, data, spec, ids)
+            caps = {"nodes": spec.num_nodes, "edges": spec.num_edges,
+                    "triplets": spec.num_triplets, "quads": spec.num_quads}
+            probes.append({"batch": b, "caps": caps, "peak_bytes": peak})
+            log(f"    batch {b}: caps {caps}; a train step on the heaviest "
+                f"molecules peaks at "
+                f"{'out of memory' if peak is None else f'{peak} bytes'}")
+            if peak is not None and peak < POINT_MEMORY:
+                break
+        else:
+            raise AssertionError(f"{name}: no batch fits")
+        B = spec.num_graphs
+        rec.update(batch=B, caps=caps, peak_bytes=peak, probes=probes)
+        log(f"    batch {B} (peak {peak / 2**30:.2f} GiB < "
+            f"{POINT_MEMORY / 2**30:.0f} GiB)")
+        del model
+        gc.collect()
+
+        # (b) training: 2 epochs with device sampling, eager against
+        # replayed (scan_steps=16), from the same weights.
+        ds = Dataset(name, mols, _split(np.random.default_rng(SEED + 1),
+                                        len(mols)),
+                     list(QSAR_METRICS), "bce_with_logits")
+        train = {}
+        for k in (1, 16):
+            trainer = Trainer(self.point_model(name), ds, spec, TrainConfig(
+                batch_size=B, max_epochs=2, scan_steps=k, oversample=True,
+                device_sampling=True, progress=False,
+                log_dir=os.path.join(tmp, f"points_{name}_{k}")),
+                device="cuda")
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            history = trainer.fit()
+            fit_s = time.perf_counter() - t0
+            steps = len(trainer.step_losses) // 2
+            rates = [steps * B / (e["train_dispatch_time_s"]
+                                  + e["train_readback_time_s"])
+                     for e in history]
+            train[k] = {"losses": trainer.step_losses, "graphs_per_s": rates,
+                        "fit_s": fit_s,
+                        "peak_bytes": torch.cuda.max_memory_allocated()}
+            log(f"    (b) train {'eager' if k == 1 else 'replayed'} on "
+                f"{card}: {', '.join(f'{r:.1f}' for r in rates)} graphs/s "
+                f"by epoch ({steps} steps of {B} an epoch; fit with "
+                f"evaluation {fit_s:.1f} s); first losses "
+                f"{trainer.step_losses[:3]}")
+            if not np.isfinite(trainer.step_losses).all():
+                raise AssertionError(f"{name}: a train loss is not finite")
+            if k > 1:
+                train[k]["replays"] = self.replay_profile(
+                    trainer, f"{name} b{B} replayed step", n=4)
+            trainer = history = None
+            gc.collect()
+            torch.cuda.empty_cache()
+        first = np.asarray(train[1]["losses"][:3])
+        gap = float(np.abs(np.asarray(train[16]["losses"][:3]) - first).max()
+                    / np.abs(first).max())
+        log(f"    eager against replayed, first 3 losses: max relative "
+            f"diff {gap:.3e} (limit 1e-5)")
+        rec["train"] = {"eager": train[1], "replayed": train[16],
+                        "first_losses_rel_diff": gap}
+        if gap > 1e-5:
+            raise AssertionError(f"{name}: replayed losses differ by {gap}")
+
+        # (c) serving: predict_graphs end to end, forward only, and
+        # screen_library over the molecules, ABCCBA.
+        model = self.point_model(name)
+        sd = {k: v.clone() for k, v in model.state_dict().items()}
+        pred = Predictor(model, sd, spec, device="cuda")
+        batches = [batch_points(mols[s:s + B], spec).to("cuda")
+                   for s in range(0, len(mols), B)]
+        runs = {"predict_graphs": [], "forward": [], "screen_library": []}
+        outs = {}
+
+        def forward():
+            with torch.inference_mode():
+                for b in batches:
+                    pred.model(b)
+
+        calls = {"predict_graphs": lambda: pred.predict_graphs(mols),
+                 "forward": forward,
+                 "screen_library": lambda: pred.screen_library(mols)}
+        for what in ("predict_graphs", "forward", "screen_library",
+                     "screen_library", "forward", "predict_graphs"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[what] = calls[what]()
+            torch.cuda.synchronize()
+            runs[what].append(len(mols) / (time.perf_counter() - t0))
+        diff = float(np.abs(outs["screen_library"]
+                            - outs["predict_graphs"]).max())
+        scale = float(np.abs(outs["predict_graphs"]).max())
+        for what, r in runs.items():
+            log(f"    (c) {what} on {card}: "
+                f"{', '.join(f'{x:.1f}' for x in r)} graphs/s")
+        log(f"    screen_library against predict_graphs: max |diff| "
+            f"{diff:.3e} (max |score| {scale:.3e})")
+        rec["serve"] = {"graphs_per_s": runs, "screen_vs_predict": diff}
+        if not np.isfinite(outs["screen_library"]).all() or (
+                diff > 1e-4 * max(1.0, scale)):
+            raise AssertionError(f"{name}: screening disagrees")
+        batches = pred = outs = None
+
+        # (d) the card against the CPU: fp64 within 1e-9, fp32 within 1e-4
+        # of the fp64 values (relative to the largest).
+        spec8 = family.make_spec(mols[:8], 8)
+        b8 = batch_points(mols[:8], spec8)
+        b64 = dataclasses.replace(b8, pos=b8.pos.double(), y=b8.y.double())
+        m64 = self.point_model(name, torch.float64).eval()
+        with torch.no_grad():
+            want = m64(b64)[1].numpy()
+            got64 = m64.cuda()(b64.to("cuda"))[1].cpu().numpy()
+            got32 = self.point_model(name).cuda().eval()(
+                b8.to("cuda"))[1].cpu().numpy()
+        scale = max(1.0, float(np.abs(want).max()))
+        d64 = float(np.abs(got64 - want).max()) / scale
+        d32 = float(np.abs(got32 - want).max()) / scale
+        log(f"    (d) 8 molecules, card against CPU: fp64 {d64:.3e}, fp32 "
+            f"against fp64 {d32:.3e} (relative to max |value| {scale:.3e};"
+            f" limits 1e-9, 1e-4)")
+        rec["card_vs_cpu"] = {"fp64": d64, "fp32": d32}
+        if d64 > 1e-9 or d32 > 1e-4:
+            raise AssertionError(f"{name}: the card disagrees with the CPU")
+
+        # (e) the device gather against the host packer, bit for bit.
+        rng = np.random.default_rng(SEED)
+        for ids in (np.arange(B), np.arange(len(mols) - B // 2, len(mols)),
+                    rng.choice(len(mols), B, replace=False)):
+            ids = ids.astype(np.int32)
+            got = gather_points(data, torch.as_tensor(
+                pad_ids(ids, B), device="cuda"), spec)
+            want = batch_points([mols[i] for i in ids], spec)
+            for a, b in zip(got.leaves(), want.leaves()):
+                if not torch.equal(a.cpu(), b):
+                    raise AssertionError(f"{name}: gather_points differs")
+        log("    (e) gather_points on the card equals batch_points bit for "
+            "bit (3 id sets, one padded)")
+
+        # (f) the mirror contract on the card.
+        model = self.point_model(name).cuda().eval()
+        batch = batch_points(mols[:B], spec).to("cuda")
+        flip = torch.tensor([-1.0, 1.0, 1.0], device="cuda")
+        with torch.no_grad():
+            a = model(batch)[1]
+            b = model(dataclasses.replace(batch, pos=batch.pos * flip))[1]
+        mirror = float((a - b).abs().max() / a.abs().max())
+        rec["mirror_rel_diff"] = mirror
+        if name == "spherenet":
+            ok = float((a - b).abs().max()) > 1e-6
+            want_txt = "> 1e-6 absolute: the torsion sees the mirror"
+        else:
+            ok = mirror <= 1e-5
+            want_txt = "<= 1e-5 relative: invariant up to the atomics"
+        log(f"    (f) mirror image on the card: max relative diff "
+            f"{mirror:.3e} (want {want_txt})")
+        if not ok:
+            raise AssertionError(f"{name}: the mirror contract fails")
+        del batch, model, data
+        gc.collect()
+        torch.cuda.empty_cache()
+        if name == POINT_EXPORT:
+            rec["export"] = self.point_export(name, tmp)
+        return rec
+
+    def point_export(self, name, tmp):
+        """(h) A reference-layout .ckpt of the family through the import CLI
+        (exported on the card) and the screen CLI on an SDF library: the
+        CSV against a Predictor with the same weights."""
+        import numpy as np
+
+        from molkgnn_torch.chem.features import mol_to_graph
+        from molkgnn_torch.chem.sdf import parse_sdf
+        from molkgnn_torch.cli import import_ckpt, screen
+        from molkgnn_torch.models.registry import get_family
+        from molkgnn_torch.serving.predictor import Predictor
+        from molkgnn_torch.tools.enantiomer import write_enantiomer_sdfs
+
+        torch = self.torch
+        lib_dir = os.path.join(tmp, f"points_{name}_lib")
+        write_enantiomer_sdfs(lib_dir, 32, 96)
+        sdf = os.path.join(lib_dir, "1798_inactives_new.sdf")
+        model = self.point_model(name)
+        ckpt = os.path.join(lib_dir, "ref.ckpt")
+        torch.save({"state_dict": {"model." + k: v for k, v in
+                                   model.state_dict().items()}}, ckpt)
+        art = os.path.join(lib_dir, f"{name}.pt2")
+        csv = os.path.join(lib_dir, "scores.csv")
+        rc = import_ckpt.main(["--torch_ckpt", ckpt, "--sdf", sdf, "--out",
+                               art, "--batch_size", "32", "--prefix",
+                               "model.", "--gnn_type", name,
+                               "--device", "cuda"])
+        rc = rc or screen.main(["--exported", art, "--sdf", sdf, "--out",
+                                csv, "--device", "cuda"])
+        if rc:
+            raise AssertionError(f"{name}: the import or screen CLI failed")
+        with open(csv) as f:
+            got = np.array([float(line.split(",")[1])
+                            for line in f.read().splitlines()[1:]])
+        graphs = [mol_to_graph(m, y=0.0, idx=i)
+                  for i, (m, _) in enumerate(parse_sdf(sdf))]
+        spec = get_family(name).make_spec(graphs, 32)
+        want = Predictor(model, model.state_dict(), spec,
+                         device="cuda").predict_graphs(graphs)
+        diff = float(np.abs(got - want).max())
+        log(f"    (h) {name}: import CLI -> exported program -> screen CLI "
+            f"on {len(graphs)} SDF records: CSV against the Predictor max "
+            f"|diff| {diff:.3e} (limit 1e-4)")
+        if got.shape != want.shape or diff > 1e-4:
+            raise AssertionError(f"{name}: the exported CSV disagrees")
+        return {"records": len(graphs), "csv_vs_predictor": diff}
+
+    def point_quality(self, tmp):
+        """(i) The enantiomer configurations of the point families through
+        the CLI on phase 6's SDF pair (6,000 inactives, its ingest cache),
+        beside the JAX-CPU records (printed, not asserted)."""
+        from molkgnn_torch.tools import enantiomer
+
+        out = {}
+        for name in POINT_MOLECULES:
+            r = enantiomer.cli_run(os.path.join(tmp, "dataset"),
+                                   os.path.join(tmp, f"enantiomer_{name}"),
+                                   gnn_type=name, device="cuda")
+            last, rec = r["test"]["last"], r["jax_cpu_record"]
+            out[name] = {"epochs": r["epochs"], "test_last": last,
+                         "train_loss": r["train_loss"],
+                         "jax_cpu_record": rec, "cli_s": r["cli_s"]}
+            log(f"  (i) enantiomer {name}, {r['epochs']} epochs, "
+                f"{enantiomer.N_ACTIVE + SMOKE_INACTIVES} records: test "
+                f"[last] logAUC[0.001,0.1] "
+                f"{last['logAUC_0.001_0.1']:.4f}, AUC {last['AUC']:.4f} "
+                f"(JAX-CPU at 61,645 inactives {rec['logAUC_0.001_0.1']:.4f}"
+                f" / {rec['AUC']:.4f}); CLI {r['cli_s']:.1f} s")
+        return out
+
     # ------------------------------------------------------------ record
     def kernel_record(self):
         entries = []
@@ -1554,6 +1937,10 @@ class Smoke:
                      "Trainer._predict_ids through serving.blocks."
                      "BlockScorer, 194 batches of 32, 4 a batch"),
         }
+        for path, counts in self.points_launches.items():
+            new_paths[f"points_{path}"] = (
+                counts, f"phase 8, {path}: not on the point families' "
+                "path (0, counted)")
         for name in ("grouped_support_score", "fused_support_score"):
             if name == "grouped_support_score":
                 (l0, s0, e0) = self.per_request[(name, "layer 0")]
@@ -1659,6 +2046,9 @@ def main() -> int:
             phase = "screen"
             log("[7] screening, import and export")
             smoke.phase_screen(graphs, spec, tmp)
+            phase = "points"
+            log("[8] the point families: SchNet, DimeNet++, SphereNet")
+            smoke.phase_points(graphs, tmp)
         record = smoke.kernel_record()
     except Exception:
         traceback.print_exc()
@@ -1672,7 +2062,8 @@ def main() -> int:
                       "graphed": smoke.graphed_record,
                       "cli": smoke.cli_record,
                       "screen": smoke.screen_record,
-                      "evaluation": smoke.eval_record}),
+                      "evaluation": smoke.eval_record,
+                      "points": smoke.points_record}),
           flush=True)
     print(json.dumps(record), flush=True)
     print(smi, flush=True)

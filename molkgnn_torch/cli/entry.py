@@ -1,8 +1,8 @@
 """CLI entry point of the port: train / validate / test a model on a dataset.
 
-Port of ``molkgnn_tpu/cli/entry.py`` for the ``kgnn`` family on one device:
-the same flags (every group and default of its ``build_parser``, so any
-argv the JAX CLI takes parses), plus ``--device {cuda,cpu}`` (default
+Port of ``molkgnn_tpu/cli/entry.py`` on one device, for ``--gnn_type``
+kgnn, schnet, dimenet_pp and spherenet: the same flags (every group and
+default of its ``build_parser``, so any argv the JAX CLI takes parses), plus ``--device {cuda,cpu}`` (default
 ``cuda``), the counterpart of ``JAX_PLATFORMS``. The derived iteration
 budget (tot_iterations = ceil(train/batch)*max_epochs + 2, warmup += 2),
 the dispatch on ``--validate``/``--test``, the artifacts (checkpoints under
@@ -10,11 +10,14 @@ the dispatch on ``--validate``/``--test``, the artifacts (checkpoints under
 ``logs/history.json``, ``test_result.log``, ``kernels/``, the graph
 embeddings) and ``logs/task_info.log`` are the JAX CLI's.
 
-On the card the encoder runs the hand-written scorer kernel
+On the card the kgnn encoder runs the hand-written scorer kernel
 (``MolKGNNNet(use_kernel=True)``); on the CPU the same model takes the
-scorer's plain version. Not ported yet, and refused with the ROADMAP item
-that holds them: ``--gnn_type`` other than ``kgnn`` (A11), ``--num_devices
-> 1`` (A12), ``--model_parallel halo|hybrid`` (A13), ``--balanced_batches``
+scorer's plain version. The point families (SchNet, DimeNet++, SphereNet)
+train on point-cloud batches whose spec has the family's ``--cutoff``
+(``models/registry.py``); the kernels (``kernels/``) are written for kgnn
+only, as by the JAX CLI. Not ported yet, and refused with the ROADMAP item
+that holds them: ``--gnn_type chironet`` (A11), ``--num_devices > 1``
+(A12), ``--model_parallel halo|hybrid`` (A13), ``--balanced_batches``
 (A14).
 
 Run as ``python -m molkgnn_torch.cli.entry --dataset_name synthetic_motif``
@@ -182,9 +185,9 @@ def build_parser(gnn_type: str) -> argparse.ArgumentParser:
 
 def unported(args) -> str | None:
     """Why ``args`` asks for what the port does not have yet, or None."""
-    if args.gnn_type != "kgnn":
-        return (f"--gnn_type {args.gnn_type} is not ported to molkgnn_torch "
-                "yet (ROADMAP A11); only kgnn is")
+    if args.gnn_type == "chironet":
+        return ("--gnn_type chironet is not ported to molkgnn_torch yet "
+                "(ROADMAP A11)")
     if args.num_devices > 1:
         return ("--num_devices > 1 (data parallel) is not ported to "
                 "molkgnn_torch yet (ROADMAP A12)")
@@ -198,39 +201,86 @@ def unported(args) -> str | None:
 
 
 def build_model(args):
-    """GNNModel(MolKGNNNet) from the flags, with weights drawn from
-    ``--seed``; the scorer kernel on the card, its plain version on the
+    """GNNModel of ``args.gnn_type`` from the flags, with weights drawn from
+    ``--seed``; kgnn's scorer kernel on the card, its plain version on the
     CPU."""
     import torch
 
-    from molkgnn_torch.models.kgnn import MolKGNNNet
+    from molkgnn_torch.models.registry import get_family
     from molkgnn_torch.training.model import GNNModel
 
     gen = torch.Generator().manual_seed(args.seed)
-    encoder = MolKGNNNet(
-        num_layers=args.num_layers,
-        kernels_1hop=(
-            args.num_kernel1_1hop, args.num_kernel2_1hop,
-            args.num_kernel3_1hop, args.num_kernel4_1hop,
-        ),
-        kernels_nhop=(
-            args.num_kernel1_Nhop, args.num_kernel2_Nhop,
-            args.num_kernel3_Nhop, args.num_kernel4_Nhop,
-        ),
-        node_dim=args.node_feature_dim,
-        edge_dim=args.edge_feature_dim,
-        graph_embedding_dim=args.hidden_dim,
-        drop_ratio=args.dropout_ratio,
-        use_kernel=args.device == "cuda",
-        chirality_every_layer=args.chirality_every_layer,
-        generator=gen,
-    )
+    make = get_family(args.gnn_type).make_encoder
+    if args.gnn_type == "kgnn":
+        encoder = make(
+            num_layers=args.num_layers,
+            kernels_1hop=(
+                args.num_kernel1_1hop, args.num_kernel2_1hop,
+                args.num_kernel3_1hop, args.num_kernel4_1hop,
+            ),
+            kernels_nhop=(
+                args.num_kernel1_Nhop, args.num_kernel2_Nhop,
+                args.num_kernel3_Nhop, args.num_kernel4_Nhop,
+            ),
+            node_dim=args.node_feature_dim,
+            edge_dim=args.edge_feature_dim,
+            graph_embedding_dim=args.hidden_dim,
+            drop_ratio=args.dropout_ratio,
+            use_kernel=args.device == "cuda",
+            chirality_every_layer=args.chirality_every_layer,
+            generator=gen,
+        )
+    elif args.gnn_type == "schnet":
+        encoder = make(
+            cutoff=args.cutoff, num_layers=args.num_layers,
+            hidden_channels=args.hidden_channels,
+            num_filters=args.num_filters, num_gaussians=args.num_gaussians,
+            out_channels=args.out_channels, generator=gen,
+        )
+    elif args.gnn_type == "dimenet_pp":
+        encoder = make(
+            hidden_channels=args.hidden_channels,
+            out_channels=args.out_channels, num_blocks=args.num_blocks,
+            int_emb_size=args.int_emb_size,
+            basis_emb_size=args.basis_emb_size,
+            out_emb_channels=args.out_emb_channels,
+            num_spherical=args.num_spherical, num_radial=args.num_radial,
+            cutoff=args.cutoff, envelope_exponent=args.envelope_exponent,
+            num_before_skip=args.num_before_skip,
+            num_after_skip=args.num_after_skip,
+            num_output_layers=args.num_output_layers, generator=gen,
+        )
+    else:  # spherenet
+        encoder = make(
+            cutoff=args.cutoff, num_layers=args.num_layers,
+            hidden_channels=args.hidden_channels,
+            out_channels=args.out_channels, int_emb_size=args.int_emb_size,
+            basis_emb_size_dist=args.basis_emb_size_dist,
+            basis_emb_size_angle=args.basis_emb_size_angle,
+            basis_emb_size_torsion=args.basis_emb_size_torsion,
+            out_emb_channels=args.out_emb_channels,
+            num_spherical=args.num_spherical, num_radial=args.num_radial,
+            envelope_exponent=args.envelope_exponent,
+            num_before_skip=args.num_before_skip,
+            num_after_skip=args.num_after_skip,
+            num_output_layers=args.num_output_layers, generator=gen,
+        )
     return GNNModel(
         encoder,
         task_dim=args.task_dim,
         ffn_dropout_rate=args.ffn_dropout_rate,
         generator=gen,
     )
+
+
+def build_spec(args, graphs):
+    """The batch spec of ``args.gnn_type`` over ``graphs`` at
+    ``--batch_size``; the point families' with their ``--cutoff``."""
+    from molkgnn_torch.models.registry import get_family
+
+    kw = {} if args.gnn_type == "kgnn" else {"cutoff": args.cutoff}
+    return get_family(args.gnn_type).make_spec(
+        graphs, batch_size=args.batch_size, **kw)
 
 
 def load_dataset(args):
@@ -296,14 +346,13 @@ def main(argv=None):
             " (shuffle-without-replacement epochs stay on the host path)"
         )
 
-    from molkgnn_torch.graphs.batch import spec_for_graphs
     from molkgnn_torch.serving.predictor import resolve_device
     from molkgnn_torch.training.checkpoint import SUFFIX, load_checkpoint
     from molkgnn_torch.training.trainer import TrainConfig, Trainer
 
     device = resolve_device(args.device)  # raises for cuda without a card
     dataset = load_dataset(args)
-    spec = spec_for_graphs(dataset.graphs, batch_size=args.batch_size)
+    spec = build_spec(args, dataset.graphs)
     model = build_model(args)
     log_dir = os.path.join(args.default_root_dir, "logs")
     cfg = TrainConfig(
@@ -353,7 +402,8 @@ def main(argv=None):
         trainer.fit()
         results = trainer.test()
         print(json.dumps(results, default=float))
-        trainer.save_kernels(os.path.join(log_dir, "kernels"))
+        if args.gnn_type == "kgnn":
+            trainer.save_kernels(os.path.join(log_dir, "kernels"))
         trainer.save_graph_embedding(log_dir)
 
     os.makedirs(log_dir, exist_ok=True)

@@ -1,11 +1,11 @@
 """`molkgnn-torch-import`: reference torch checkpoint -> exported model.
 
-Port of ``molkgnn_tpu/cli/import_ckpt.py`` for the kgnn family. A user of
-the reference trains with PyTorch Lightning and holds a PL ``.ckpt`` or a
-raw ``state_dict``; this CLI loads it into the port's model
-(``training/checkpoint.py::load_torch_checkpoint``, which checks every key
-and shape) and writes the serving artifact of ``Predictor.export`` in one
-step:
+Port of ``molkgnn_tpu/cli/import_ckpt.py`` for kgnn, SchNet, DimeNet++ and
+SphereNet. A user of the reference trains with PyTorch Lightning and holds
+a PL ``.ckpt`` or a raw ``state_dict``; this CLI loads it into the port's
+model (``training/checkpoint.py::load_torch_checkpoint``, which checks
+every key and shape) and writes the serving artifact of
+``Predictor.export`` in one step:
 
     molkgnn-torch-import --torch_ckpt best.ckpt --sdf library.sdf \\
         --out model.pt2
@@ -14,12 +14,11 @@ step:
 
 The model-shape flags are the training CLI's (``cli/entry.py``) and must
 match the checkpoint's training configuration. ``--sdf`` gives the library
-the artifact's static ``BatchSpec`` must cover. ``--device`` (default
-``cuda``) is the device the program is exported on, and so the one it
-serves on: on the card its scorer is the hand-written kernel. Not ported
-yet, and refused with the ROADMAP item that holds them: what
-``cli/entry.py::unported`` refuses (``--gnn_type`` other than ``kgnn``:
-A11).
+the artifact's static batch spec must cover (the point families' with
+their ``--cutoff``). ``--device`` (default ``cuda``) is the device the
+program is exported on, and so the one it serves on: on the card kgnn's
+scorer is the hand-written kernel. Not ported yet, and refused with the ROADMAP item that holds them: what
+``cli/entry.py::unported`` refuses (``--gnn_type chironet``: A11).
 """
 
 from __future__ import annotations
@@ -41,7 +40,7 @@ def build_base_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--sdf", required=True,
-        help="SDF library the export's BatchSpec must cover",
+        help="SDF library the export's batch spec must cover",
     )
     p.add_argument("--out", required=True, help="output artifact path")
     p.add_argument("--batch_size", type=int, default=32)
@@ -63,7 +62,12 @@ def main(argv=None) -> int:
     args, model_argv = build_base_parser().parse_known_args(argv)
     t0 = time.time()
 
-    from molkgnn_torch.cli.entry import build_model, build_parser, unported
+    from molkgnn_torch.cli.entry import (
+        build_model,
+        build_parser,
+        build_spec,
+        unported,
+    )
 
     margs = build_parser(gnn_type).parse_args(
         model_argv + ["--device", args.device])
@@ -73,7 +77,6 @@ def main(argv=None) -> int:
 
     from molkgnn_torch.chem.features import mol_to_graph
     from molkgnn_torch.chem.sdf import parse_sdf
-    from molkgnn_torch.graphs.batch import spec_for_graphs
     from molkgnn_torch.serving.predictor import Predictor, resolve_device
     from molkgnn_torch.training.checkpoint import load_torch_checkpoint
 
@@ -87,7 +90,8 @@ def main(argv=None) -> int:
     if not graphs:
         print("no parseable molecules in --sdf", file=sys.stderr)
         return 2
-    spec = spec_for_graphs(graphs, batch_size=args.batch_size)
+    margs.batch_size = args.batch_size
+    spec = build_spec(margs, graphs)
     model = build_model(margs)
     sd = load_torch_checkpoint(args.torch_ckpt, model, prefix=args.prefix)
     Predictor(model, sd, spec, device=device).export(args.out)

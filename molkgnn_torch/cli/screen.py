@@ -1,7 +1,7 @@
 """`molkgnn-torch-screen`: score an SDF library with an exported model.
 
 Port of ``molkgnn_tpu/cli/screen.py``. The artifact of ``Predictor.export``
-(or ``molkgnn-torch-import``) carries the program and its ``BatchSpec``, so
+(or ``molkgnn-torch-import``) carries the program and its batch spec, so
 scoring needs no model code, no checkpoint directory and no training
 configuration:
 

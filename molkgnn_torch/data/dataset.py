@@ -180,7 +180,10 @@ class GraphLoader:
     """Host-side loader of fixed-shape GraphBatches (CPU tensors).
 
     ``seed`` is an int or a ``np.random.Generator`` to draw from. The final
-    partial batch is padded with masked graphs, never dropped.
+    partial batch is padded with masked graphs, never dropped. ``collate``
+    (graphs, spec) -> batch packs another batch family (the point families'
+    ``batch_points``); by default kgnn batches come from the flat-packed
+    dataset.
     """
 
     def __init__(
@@ -191,6 +194,7 @@ class GraphLoader:
         shuffle: bool = False,
         oversample: bool = False,
         seed=0,
+        collate=None,
     ):
         self.graphs = list(graphs)
         self.spec = spec
@@ -198,7 +202,9 @@ class GraphLoader:
         self.shuffle = shuffle
         self.oversample = oversample
         self.rng = np.random.default_rng(seed)
-        self._packed = PackedGraphs.from_graphs(self.graphs)
+        self.collate = collate
+        self._packed = (PackedGraphs.from_graphs(self.graphs)
+                        if collate is None else None)
         self._labels = np.array([g.y for g in self.graphs])
 
     def __len__(self) -> int:
@@ -209,6 +215,8 @@ class GraphLoader:
             self.rng, self._labels, self.oversample, self.shuffle
         )
         for start in range(0, len(order), self.batch_size):
-            yield self._packed.pack(
-                order[start : start + self.batch_size], self.spec
-            )
+            idx = order[start : start + self.batch_size]
+            if self._packed is None:
+                yield self.collate([self.graphs[i] for i in idx], self.spec)
+            else:
+                yield self._packed.pack(idx, self.spec)

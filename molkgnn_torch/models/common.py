@@ -19,7 +19,8 @@ class TorchLinear(nn.Module):
     from an explicit ``generator``.
 
     weight [out, in] and bias [out] ~ U(-1/sqrt(in), 1/sqrt(in)), the
-    distribution of ``nn.Linear``'s kaiming_uniform(a=sqrt(5)) init.
+    distribution of ``nn.Linear``'s kaiming_uniform(a=sqrt(5)) init;
+    ``bias=False`` leaves the bias out.
     """
 
     def __init__(
@@ -27,6 +28,7 @@ class TorchLinear(nn.Module):
         in_features: int,
         out_features: int,
         generator: torch.Generator | None = None,
+        bias: bool = True,
     ):
         super().__init__()
         bound = 1.0 / math.sqrt(in_features) if in_features > 0 else 0.0
@@ -39,7 +41,7 @@ class TorchLinear(nn.Module):
             torch.empty(out_features).uniform_(
                 -bound, bound, generator=generator
             )
-        )
+        ) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight, self.bias)
@@ -71,3 +73,17 @@ class Dropout(nn.Module):
         keep = 1.0 - self.rate
         mask = torch.empty_like(x).bernoulli_(keep, generator=self.generator)
         return x * mask / keep
+
+
+class Linear(nn.Module):
+    """Dense layer ``x W^T + b`` from a given initial weight [out, in], with
+    a zero bias (or none): the layers whose init is not torch's default."""
+
+    def __init__(self, weight: torch.Tensor, bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(weight)
+        self.bias = (nn.Parameter(torch.zeros(weight.shape[0])) if bias
+                     else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight, self.bias)

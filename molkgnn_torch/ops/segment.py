@@ -66,3 +66,15 @@ def global_add_pool(
     return segment_sum_nodes(
         node_values, node_graph_id, num_graphs, mask=node_mask
     )
+
+
+def segment_min(
+    values: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
+) -> torch.Tensor:
+    """Least of ``values`` [N] per segment (``jax.ops.segment_min``); a
+    segment with no entry holds ``inf``. Padded entries should carry
+    ``inf``. A minimum is exact, so the result does not depend on the
+    order in which entries arrive."""
+    out = values.new_full((num_segments,), float("inf"))
+    return out.scatter_reduce(0, segment_ids.long(), values, "amin",
+                              include_self=False)

@@ -2,13 +2,15 @@
 
 The counterpart of the JAX package's ``lax.scan`` over id blocks inside one
 ``jit`` (``Predictor.screen_library``, ``Trainer._eval_flat``): the dataset
-lives on the device (``graphs/device_pack.py``), the ids of every batch
-form a ``[nblocks, B]`` matrix padded with -1 (``pad_ids``), and the
+lives on the device (``graphs/device_pack.py``, or
+``graphs/device_points.py`` for the point families: the gather is the spec
+family's), the ids of every batch form a ``[nblocks, B]`` matrix padded
+with -1 (``pad_ids``), and the
 predictions of all blocks come back as one ``[nblocks, B]`` tensor, read
 back once by the caller. Nothing is read back between blocks.
 
-On the card, one eval forward, ``model(gather_batch(data, ids, spec))[0]``
-on a static id buffer, is captured as a CUDA graph and replayed per block:
+On the card, one eval forward, ``model(gather(data, ids, spec))[0]`` on a
+static id buffer, is captured as a CUDA graph and replayed per block:
 copy the block's ids into the static buffer, replay, copy the static output
 into the result. The graph is captured on the first call for a (dataset,
 B): the first block runs eagerly on a side stream (the warm-up, whose
@@ -34,33 +36,33 @@ import dataclasses
 import torch
 from torch import nn
 
-from molkgnn_torch.graphs.batch import BatchSpec
-from molkgnn_torch.graphs.device_pack import DeviceDataset, gather_batch
 from molkgnn_torch.ops.support_score import (
     add_launches,
     launch_counts,
     take_launches,
 )
+from molkgnn_torch.serving.predictor import device_pipeline
 
 
 class BlockScorer:
-    """Predictions of an eval-mode ``model`` over id blocks of a
-    ``DeviceDataset`` (see the module doc)."""
+    """Predictions of an eval-mode ``model`` over id blocks of a device
+    dataset of ``spec``'s family (see the module doc)."""
 
-    def __init__(self, model: nn.Module, spec: BatchSpec):
+    def __init__(self, model: nn.Module, spec):
         self.model = model
         self.spec = spec
+        self._gather = device_pipeline(spec)[1]
         self._key = None  # (the dataset's tensors, B) the graph reads
         self._graph = None
         self._ids = None  # static [B] int32 input
         self._pred = None  # static [B] output
         self._launches = None  # scorer launches of one replay
 
-    def _forward(self, data: DeviceDataset, ids: torch.Tensor):
-        return self.model(gather_batch(data, ids, self.spec))[0]
+    def _forward(self, data, ids: torch.Tensor):
+        return self.model(self._gather(data, ids, self.spec))[0]
 
     @torch.inference_mode()
-    def __call__(self, data: DeviceDataset, idm: torch.Tensor):
+    def __call__(self, data, idm: torch.Tensor):
         """[nblocks, B] predictions of the graphs ``idm`` [nblocks, B]
         (int32 on the dataset's device, -1 padded; padded entries score
         whatever the model gives a masked graph), left on the device."""
@@ -87,7 +89,7 @@ class BlockScorer:
             return False
         return all(a is b for a, b in zip(self._key[0], key[0]))
 
-    def _capture(self, data: DeviceDataset, first: torch.Tensor):
+    def _capture(self, data, first: torch.Tensor):
         """Score the block ``first`` eagerly on a side stream (the warm-up),
         then capture the forward on a static copy of its ids; returns the
         block's predictions."""
@@ -109,7 +111,7 @@ class BlockScorer:
         return pred
 
 
-def _tensors(data: DeviceDataset) -> list:
+def _tensors(data) -> list:
     """Every tensor of ``data``, the per-degree tuples flattened."""
     out = []
     for f in dataclasses.fields(data):

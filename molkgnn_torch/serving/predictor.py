@@ -1,7 +1,9 @@
 """Inference / serving path: trained weights -> batched predictor.
 
-Port of ``molkgnn_tpu/serving/predictor.py`` for the kgnn batch family on
-one device:
+Port of ``molkgnn_tpu/serving/predictor.py`` on one device, for the kgnn
+batch family (``BatchSpec``) and the point-cloud family of SchNet,
+DimeNet++ and SphereNet (``PointBatchSpec``), dispatched on the spec's
+type:
 
   * ``predict_graphs``: chunked batching of any number of molecules through
     one fixed-shape ``BatchSpec`` (each chunk packed on the host, the last
@@ -14,12 +16,12 @@ one device:
   * ``predict_smiles``: SMILES in (the port's chemistry), scores out, NaN
     where a SMILES does not parse;
   * ``export``/``load_exported``: the eval forward as a ``torch.export``
-    program (the scorer kernel a registered op in it) with the
-    ``BatchSpec``; loading needs no model code.
+    program (the scorer kernel a registered op in it) with the spec and
+    its family; loading needs no model code.
 
-The point-cloud and ChIRoNet batch families (``PointBatchSpec``,
-``ChiroBatchSpec``) are not ported yet (ROADMAP A11): a spec of another
-family raises. Data-parallel screening (``mesh=``) is ROADMAP A12.
+The ChIRoNet batch family (``ChiroBatchSpec``) is not ported yet (ROADMAP
+A11): a spec of another family raises. Data-parallel screening (``mesh=``)
+is ROADMAP A12.
 
 On the card, float32 products run in full float32: TF32 is switched off
 for matrix products and cuDNN, because the permutation argmax of the score
@@ -39,12 +41,17 @@ import torch
 from torch import nn
 
 from molkgnn_torch.graphs.batch import BatchSpec, GraphBatch
+from molkgnn_torch.graphs.geometric import PointBatch, PointBatchSpec
 from molkgnn_torch.graphs.molgraph import MolGraph
 from molkgnn_torch.training.metrics import sigmoid
 
-# extra_files entry of an exported artifact: the BatchSpec and the device
-# the program was exported on.
+# extra_files entry of an exported artifact: the spec, its batch family
+# and the device the program was exported on. An artifact without a family
+# is a kgnn one.
 SPEC_FILE = "molkgnn_spec.json"
+# Batch family name -> (spec type, batch type).
+FAMILIES = {"kgnn": (BatchSpec, GraphBatch),
+            "point": (PointBatchSpec, PointBatch)}
 
 
 def resolve_device(device: Optional[str | torch.device]) -> torch.device:
@@ -59,23 +66,51 @@ def resolve_device(device: Optional[str | torch.device]) -> torch.device:
     return device
 
 
-def _require_kgnn(spec) -> None:
-    if not isinstance(spec, BatchSpec):
-        raise NotImplementedError(
-            f"the {type(spec).__name__} batch family is not ported to "
-            "molkgnn_torch yet (ROADMAP A11); only kgnn's BatchSpec is"
-        )
+def spec_family(spec) -> str:
+    """The batch family of ``spec`` ("kgnn" or "point"); another family
+    raises (ROADMAP A11)."""
+    for name, (spec_type, _) in FAMILIES.items():
+        if isinstance(spec, spec_type):
+            return name
+    raise NotImplementedError(
+        f"the {type(spec).__name__} batch family is not ported to "
+        "molkgnn_torch yet (ROADMAP A11); BatchSpec and PointBatchSpec are"
+    )
 
 
 def host_pipeline_for_spec(spec):
     """(mol -> graph featurizer, collate) for a spec's batch family: the
-    kgnn family's ``mol_to_graph`` and ``batch_graphs``. Another family
-    raises (ROADMAP A11)."""
-    _require_kgnn(spec)
+    point families read the kgnn featurisation's atomic numbers and
+    positions (``mol_to_graph``) and pack with ``batch_points``; kgnn packs
+    with ``batch_graphs``."""
     from molkgnn_torch.chem.features import mol_to_graph
+
+    if spec_family(spec) == "point":
+        from molkgnn_torch.graphs.geometric import batch_points
+
+        return mol_to_graph, batch_points
     from molkgnn_torch.graphs.batch import batch_graphs
 
     return mol_to_graph, batch_graphs
+
+
+def device_pipeline(spec):
+    """(build(graphs, device) -> device dataset, gather(data, ids, spec) ->
+    batch) for a spec's batch family: ``device_points`` for the point
+    families, ``device_pack`` for kgnn."""
+    if spec_family(spec) == "point":
+        from molkgnn_torch.graphs.device_points import (
+            DevicePointDataset,
+            gather_points,
+        )
+
+        return (lambda graphs, device: DevicePointDataset.from_graphs(
+            graphs, spec, device), gather_points)
+    from molkgnn_torch.graphs.device_pack import DeviceDataset, gather_batch
+    from molkgnn_torch.graphs.packed import PackedGraphs
+
+    return (lambda graphs, device: DeviceDataset.from_packed(
+        PackedGraphs.from_graphs(graphs), device), gather_batch)
 
 
 class Predictor:
@@ -85,10 +120,11 @@ class Predictor:
         self,
         model: nn.Module,
         state_dict: Mapping[str, torch.Tensor],
-        spec: BatchSpec,
+        spec,
         device: Optional[str | torch.device] = None,
         collate=None,
     ):
+        spec_family(spec)  # raises for a family not ported yet
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -118,7 +154,7 @@ class Predictor:
 
     @classmethod
     def from_checkpoint(
-        cls, model: nn.Module, path: str, spec: BatchSpec, collate=None,
+        cls, model: nn.Module, path: str, spec, collate=None,
         device: Optional[str | torch.device] = None,
     ) -> "Predictor":
         """A Predictor of a port checkpoint (``Trainer``'s
@@ -170,15 +206,28 @@ class Predictor:
         """Per-graph resource counts, the spec's capacity vector and their
         names: the host-side overflow check that the device gather cannot
         make (it truncates silently)."""
-        _require_kgnn(self.spec)
         spec = self.spec
-        rows = [
-            (g.num_nodes, g.num_edges)
-            + tuple(g.with_fields().fields[d].count for d in range(1, 5))
-            for g in graphs
-        ]
-        caps = (spec.num_nodes, spec.num_edges) + tuple(spec.deg_capacity)
-        names = ("nodes", "edges", "deg1", "deg2", "deg3", "deg4")
+        if spec_family(spec) == "point":
+            from molkgnn_torch.graphs.geometric import molecule_geometry
+
+            rows = []
+            for g in graphs:
+                e, t, q = molecule_geometry(
+                    g, spec.cutoff, spec.with_triplets, spec.with_torsion)
+                rows.append((g.num_nodes, e.shape[1], t.shape[1],
+                             q.shape[1]))
+            caps = (spec.num_nodes, spec.num_edges, spec.num_triplets,
+                    spec.num_quads)
+            names = ("nodes", "edges", "triplets", "quads")
+        else:
+            rows = [
+                (g.num_nodes, g.num_edges)
+                + tuple(g.with_fields().fields[d].count for d in range(1, 5))
+                for g in graphs
+            ]
+            caps = (spec.num_nodes, spec.num_edges) + tuple(
+                spec.deg_capacity)
+            names = ("nodes", "edges", "deg1", "deg2", "deg3", "deg4")
         return (np.asarray(rows, np.int64).reshape(-1, len(caps)),
                 np.asarray(caps, np.int64), names)
 
@@ -193,7 +242,8 @@ class Predictor:
         production use (ranking a PubChem HTS library by score).
 
         Each slab of ``slab`` molecules is flat-packed on the host once
-        (``PackedGraphs``) and copied to the device (``DeviceDataset``);
+        and copied to the device (``device_pipeline``: ``DeviceDataset``,
+        or ``DevicePointDataset`` with the molecules' geometry);
         every padded batch is assembled there and the slab's id blocks are
         scored by one CUDA graph replayed per block on the card (eager
         forwards on the CPU), with one readback a slab. Every batch is
@@ -211,11 +261,11 @@ class Predictor:
                 "screen_library(mesh=...): data-parallel screening is not "
                 "ported to molkgnn_torch yet (ROADMAP A12)"
             )
-        from molkgnn_torch.graphs.device_pack import DeviceDataset, pad_ids
-        from molkgnn_torch.graphs.packed import PackedGraphs
+        from molkgnn_torch.graphs.device_pack import pad_ids
         from molkgnn_torch.serving.blocks import BlockScorer
 
         blocks = BlockScorer(self.model, self.spec)
+        build = device_pipeline(self.spec)[0]
         b = self.spec.num_graphs
         counts, caps, names = self._batch_resource_counts(graphs)
         self.screen_slabs = []
@@ -241,12 +291,11 @@ class Predictor:
                     "screen_library: batch exceeds the spec's capacities "
                     f"({'; '.join(over)}) — the library contains molecules "
                     "larger than the spec was built for; rebuild the spec "
-                    "over the library (spec_for_graphs)"
+                    "over the library (spec_for_graphs, "
+                    "point_spec_for_graphs)"
                 )
             t1 = time.perf_counter()
-            data = DeviceDataset.from_packed(
-                PackedGraphs.from_graphs(chunk), self.device
-            )
+            data = build(chunk, self.device)
             t2 = time.perf_counter()
             preds = blocks(
                 data, torch.as_tensor(idm, device=self.device)
@@ -264,23 +313,25 @@ class Predictor:
     # ------------------------------------------------------------------
     def export(self, path: str):
         """Write the eval forward as a ``torch.export`` program at ``path``
-        (``torch.export.save``), with the ``BatchSpec`` in its extra files:
-        an artifact that ``load_exported`` serves without the model code.
-        Returns the ``ExportedProgram``.
+        (``torch.export.save``), with the spec and its batch family in its
+        extra files: an artifact that ``load_exported`` serves without the
+        model code. Returns the ``ExportedProgram``.
 
-        The program takes the ``GraphBatch`` leaves (``GraphBatch.leaves``,
-        the JAX package's tree order) at the spec's shapes and returns
+        The program takes the batch's leaves (``GraphBatch.leaves`` or
+        ``PointBatch.leaves``, the JAX package's tree order) at the spec's
+        shapes and returns
         (prediction [B], graph embedding [B, H]). It is traced on this
         Predictor's device, whose tensors it keeps (parameters, and the
         devices of tensors the forward creates), so it serves on that
         device type only. With ``use_kernel=True`` the scorer is one
         ``molkgnn.support_score`` node a layer."""
+        family = spec_family(self.spec)
         leaves = self.collate([_two_atoms(self.spec)], self.spec).to(
             self.device).leaves()
         with torch.no_grad():
-            program = torch.export.export(_LeafForward(self.model),
-                                          tuple(leaves))
-        meta = {"spec": dataclasses.asdict(self.spec),
+            program = torch.export.export(
+                _LeafForward(self.model, FAMILIES[family][1]), tuple(leaves))
+        meta = {"spec": dataclasses.asdict(self.spec), "family": family,
                 "device": self.device.type}
         with open(path, "wb") as f:  # a file object: any name will do
             torch.export.save(program, f,
@@ -307,11 +358,14 @@ class Predictor:
                 f"only (export it again on {device.type})"
             )
         fields = meta["spec"]
-        spec = BatchSpec(**{**fields,
-                            "deg_capacity": tuple(fields["deg_capacity"])})
+        if meta.get("family", "kgnn") == "point":
+            spec = PointBatchSpec(**fields)
+        else:
+            spec = BatchSpec(**{**fields,
+                                "deg_capacity": tuple(fields["deg_capacity"])})
         fn = program.module()
 
-        def call(batch: GraphBatch):
+        def call(batch):
             with torch.inference_mode():
                 return fn(*[t.to(device) for t in batch.leaves()])
 
@@ -347,23 +401,26 @@ class Predictor:
 
 
 class _LeafForward(nn.Module):
-    """``model`` called on a GraphBatch rebuilt from its leaves: the
-    module ``export`` traces."""
+    """``model`` called on a batch of type ``batch_type`` rebuilt from its
+    leaves: the module ``export`` traces."""
 
-    def __init__(self, model: nn.Module):
+    def __init__(self, model: nn.Module, batch_type):
         super().__init__()
         self.model = model
+        self.batch_type = batch_type
 
     def forward(self, *leaves):
-        return self.model(GraphBatch.from_leaves(leaves))
+        return self.model(self.batch_type.from_leaves(leaves))
 
 
-def _two_atoms(spec: BatchSpec) -> MolGraph:
+def _two_atoms(spec) -> MolGraph:
     """The template molecule of ``export``'s example batch: only its
     shapes and types are traced."""
+    fe = getattr(spec, "edge_dim", 7)
     return MolGraph(
-        x=np.zeros((2, spec.node_dim), np.float32),
-        p=np.zeros((2, spec.pos_dim), np.float32),
+        x=np.zeros((2, getattr(spec, "node_dim", 28)), np.float32),
+        p=np.array([[0.0, 0.0, 0.0], [1.0, 0.0, 0.0]], np.float32),
         edge_index=np.array([[0, 1], [1, 0]], np.int32),
-        edge_attr=np.zeros((2, spec.edge_dim), np.float32),
+        edge_attr=np.zeros((2, fe), np.float32),
+        atomic_num=np.array([6, 8], np.int32),
     )

@@ -7,23 +7,31 @@ checkpoint files: ``torch.save`` of a payload of tensors and plain values
 
 ``from_torch_state_dict``/``load_torch_checkpoint`` import a checkpoint of
 the reference PyTorch implementation (a PL ``.ckpt`` or a raw
-``state_dict``) into the port's kgnn model: the port's ``state_dict()``
-already has the reference's keys, so what they port from
+``state_dict``) into the port's model of any ported family: the port's
+``state_dict()`` already has the reference's keys, so what they port from
 ``molkgnn_tpu/training/checkpoint.py`` is its checking: every target key
 found, every shape equal, no key left over but the reference's dead ones.
 
-``from_jax_variables`` takes a ``GNNModel(MolKGNNNet)`` variable tree of the
-JAX package (``{'params': ..., 'batch_stats': ...}``, leaves as numpy
-arrays) and returns the port's ``state_dict``, whose keys are those of the
-reference PyTorch Lightning checkpoint. It is the inverse of the key map in
-``molkgnn_tpu/training/checkpoint.py::from_torch_state_dict``:
+``from_jax_variables`` takes a ``GNNModel`` variable tree of the JAX
+package (``{'params': ..., 'batch_stats': ...}``, leaves as numpy arrays)
+for kgnn, SchNet, DimeNet++ or SphereNet and returns the port's
+``state_dict``, whose keys are those of the reference PyTorch Lightning
+checkpoint. It is the inverse of the key maps in
+``molkgnn_tpu/training/checkpoint.py::from_torch_state_dict``
+(``_enc_key``, ``_schnet_key``, ``_dimenet_key``, ``_spherenet_key``):
 
   * linear layers: the JAX kernel [in, out] becomes weight [out, in];
+  * embeddings ([num, H]) and the radial frequencies pass through;
   * BatchNorm: weight/bias pass through; batch_stats mean/var become
     running_mean/running_var;
   * KernelConv tensors and score weights pass through unchanged, from
     ``encoder/gnn/layer{i}/kernelconv{d}`` to
-    ``gnn_model.gnn.layers.{i}.trainable_kernelconv_set.{d-1}``.
+    ``gnn_model.gnn.layers.{i}.trainable_kernelconv_set.{d-1}``;
+  * the point families' blocks map by name: ``mlp1_{l}`` to
+    ``update_es.{l}.mlp.0``, ``output{b}`` to ``output_blocks.{b}``,
+    ``interaction{b}/before_skip{k}`` to
+    ``interaction_blocks.{b}.layers_before_skip.{k}``, ``lin{k}`` of an
+    output block to ``lins.{k}``, and so on.
 """
 
 from __future__ import annotations
@@ -75,7 +83,8 @@ def from_torch_state_dict(
     model: torch.nn.Module, state_dict: Any, prefix: str = ""
 ) -> Dict[str, torch.Tensor]:
     """The port's ``state_dict`` for ``model`` from a reference checkpoint's
-    ``state_dict`` (str keys to tensors or arrays); load it with
+    ``state_dict`` (str keys to tensors or arrays), any ported family; load
+    it with
     ``model.load_state_dict(sd, strict=True)``.
 
     The import is driven by the model's own keys: each, with ``prefix``
@@ -139,8 +148,8 @@ def _flatten(tree: Any, prefix: Tuple[str, ...] = ()):
         yield prefix, tree
 
 
-def _target_key(collection: str, path: Tuple[str, ...]) -> Tuple[str, bool]:
-    """(port state_dict key, transpose) for one JAX leaf path."""
+def _kgnn_key(collection: str, path: Tuple[str, ...]) -> Tuple[str, bool]:
+    """(port state_dict key, transpose) for one leaf of a kgnn tree."""
     if collection == "batch_stats":
         if path[0] == "encoder" and path[1] in (
             "node_batch_norm",
@@ -148,10 +157,6 @@ def _target_key(collection: str, path: Tuple[str, ...]) -> Tuple[str, bool]:
         ):
             leaf = {"mean": "running_mean", "var": "running_var"}[path[2]]
             return f"gnn_model.{path[1]}.{leaf}", False
-    elif path[0] == "ffn":
-        return f"ffn.{'weight' if path[1] == 'kernel' else path[1]}", (
-            path[1] == "kernel"
-        )
     elif path[0] == "encoder":
         rest = path[1:]
         if rest[0] in ("node_batch_norm", "edge_batch_norm"):
@@ -173,17 +178,132 @@ def _target_key(collection: str, path: Tuple[str, ...]) -> Tuple[str, bool]:
     raise KeyError(f"no port key for {collection} path {path}")
 
 
+def _leaf(rest):
+    """(torch leaf name, transpose) of a JAX leaf: kernel -> weight."""
+    return ("weight", True) if rest[-1] == "kernel" else (rest[-1], False)
+
+
+def _schnet_key(rest):
+    name = rest[0]
+    if name == "init_v":
+        return "gnn_model.init_v.weight", False
+    leaf, transpose = _leaf(rest)
+    if name in ("uu1", "uu2"):
+        return f"gnn_model.update_u.lin{name[-1]}.{leaf}", transpose
+    base, _, layer = name.rpartition("_")
+    if base in ("mlp1", "mlp2"):
+        seq = {"mlp1": 0, "mlp2": 2}[base]
+        return f"gnn_model.update_es.{layer}.mlp.{seq}.{leaf}", transpose
+    if base == "lin":
+        return f"gnn_model.update_es.{layer}.lin.{leaf}", transpose
+    if base in ("uv1", "uv2"):
+        return f"gnn_model.update_vs.{layer}.lin{base[-1]}.{leaf}", transpose
+    raise KeyError(f"no port key for SchNet path {rest}")
+
+
+def _skip_sub(name):
+    """before_skip{k}/after_skip{k} -> layers_*_skip.{k}, else None."""
+    for ours, theirs in (("before_skip", "layers_before_skip"),
+                         ("after_skip", "layers_after_skip")):
+        if name.startswith(ours):
+            return f"{theirs}.{int(name[len(ours):])}"
+    return None
+
+
+def _out_sub(sub):
+    """lin{k} -> lins.{k}; lin_rbf, lin_up and lin pass through."""
+    if sub in ("lin_rbf", "lin_up", "lin"):
+        return sub
+    if sub.startswith("lin"):
+        return f"lins.{int(sub[len('lin'):])}"
+    raise KeyError(f"no port key for output sublayer {sub}")
+
+
+def _block_sub(rest):
+    """The sublayer path of an interaction/update_e leaf."""
+    sk = _skip_sub(rest[1])
+    return f"{sk}.{rest[2]}" if sk else rest[1]
+
+
+def _dimenet_key(rest):
+    name = rest[0]
+    if name == "rbf_freq":
+        return "gnn_model.rbf.freq", False
+    if name == "emb":
+        return "gnn_model.emb.emb.weight", False
+    leaf, transpose = _leaf(rest)
+    if name in ("emb_lin_rbf", "emb_lin"):
+        return f"gnn_model.emb.{name[len('emb_'):]}.{leaf}", transpose
+    if name.startswith("output"):
+        b = int(name[len("output"):])
+        return (f"gnn_model.output_blocks.{b}.{_out_sub(rest[1])}.{leaf}",
+                transpose)
+    if name.startswith("interaction"):
+        b = int(name[len("interaction"):])
+        return (f"gnn_model.interaction_blocks.{b}.{_block_sub(rest)}."
+                f"{leaf}", transpose)
+    raise KeyError(f"no port key for DimeNet++ path {rest}")
+
+
+def _spherenet_key(rest):
+    name = rest[0]
+    if name == "rbf_freq":
+        return "gnn_model.emb.dist_emb.freq", False
+    leaf, transpose = _leaf(rest)
+    if name == "init_e":
+        if rest[1] == "emb":
+            return "gnn_model.init_e.emb.weight", False
+        return f"gnn_model.init_e.{rest[1]}.{leaf}", transpose
+    if name == "init_v":
+        return f"gnn_model.init_v.{_out_sub(rest[1])}.{leaf}", transpose
+    if name.startswith("update_e"):
+        layer = int(name[len("update_e"):])
+        return (f"gnn_model.update_es.{layer}.{_block_sub(rest)}.{leaf}",
+                transpose)
+    if name.startswith("update_v"):
+        layer = int(name[len("update_v"):])
+        return (f"gnn_model.update_vs.{layer}.{_out_sub(rest[1])}.{leaf}",
+                transpose)
+    raise KeyError(f"no port key for SphereNet path {rest}")
+
+
+def _target_key_fn(variables: Any):
+    """(collection, path) -> (port key, transpose) for the tree's encoder
+    family, told apart by its structure as the JAX importer tells them:
+    kgnn owns the BatchNorms, DimeNet++ the emb_lin pair, SphereNet the
+    init_e block, SchNet a flat init_v table."""
+    enc = variables.get("params", {}).get("encoder", {})
+    if "node_batch_norm" in enc:
+        return _kgnn_key
+    for marker, fn in (("emb_lin", _dimenet_key), ("init_e", _spherenet_key),
+                       ("init_v", _schnet_key)):
+        if marker in enc:
+            def key(collection, path, fn=fn):
+                if path[0] == "encoder":
+                    return fn(path[1:])
+                raise KeyError(f"no port key for {collection} path {path}")
+            return key
+    raise KeyError(
+        f"unrecognised encoder family (keys: {sorted(enc)[:6]})")
+
+
 def from_jax_variables(variables: Any) -> Dict[str, torch.Tensor]:
-    """The port's ``state_dict`` for a JAX ``GNNModel(MolKGNNNet)`` tree.
+    """The port's ``state_dict`` for a JAX ``GNNModel`` tree of any ported
+    family (kgnn, SchNet, DimeNet++, SphereNet).
 
     Load the result with ``model.load_state_dict(sd, strict=True)``.
     Raises KeyError for a leaf with no counterpart in the port (e.g. fixed
     kernel sets, not ported yet).
     """
+    encoder_key = _target_key_fn(variables)
     out: Dict[str, torch.Tensor] = {}
     for collection, tree in variables.items():
         for path, leaf in _flatten(tree):
-            key, transpose = _target_key(collection, path)
+            if path[0] == "ffn":
+                key, transpose = _leaf(path)
+                key = f"ffn.{key}"
+            else:
+                key, transpose = encoder_key(collection, path)
             arr = np.asarray(leaf)
             if transpose:
                 arr = arr.T

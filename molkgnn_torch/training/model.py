@@ -1,7 +1,8 @@
 """GNNModel (encoder wrapper + prediction head) and the training losses.
 
 Port of ``molkgnn_tpu/training/model.py``: any graph encoder producing a
-[B, out_dim] graph embedding, followed by dropout and a single linear FFN to
+[B, out_dim] graph embedding (out_dim from the family's ``out_dim_field``,
+``models/registry.py``), followed by dropout and a single linear FFN to
 ``task_dim`` logits. The encoder sits under ``gnn_model`` and the head under
 ``ffn``, the names of the reference checkpoint. The losses take
 (prediction, labels, graph mask) and count real graphs only.
@@ -14,8 +15,8 @@ from typing import Callable, Dict
 import torch
 from torch import nn
 
-from molkgnn_torch.graphs.batch import GraphBatch
 from molkgnn_torch.models.common import Dropout, TorchLinear
+from molkgnn_torch.models.registry import embedding_width
 
 
 class GNNModel(nn.Module):
@@ -30,13 +31,12 @@ class GNNModel(nn.Module):
         self.gnn_model = encoder
         self.dropout = Dropout(ffn_dropout_rate)
         self.ffn = TorchLinear(
-            encoder.graph_embedding_dim, task_dim, generator=generator
+            embedding_width(encoder), task_dim, generator=generator
         )
 
-    def forward(
-        self, batch: GraphBatch
-    ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Returns (prediction [B] for task 0, graph embedding [B, H])."""
+    def forward(self, batch) -> tuple[torch.Tensor, torch.Tensor]:
+        """(prediction [B] for task 0, graph embedding [B, H]) of a batch of
+        the encoder's family (``GraphBatch``, ``PointBatch``)."""
         graph_embedding = self.gnn_model(batch)
         prediction = self.ffn(self.dropout(graph_embedding))
         return prediction[..., 0], graph_embedding

@@ -10,11 +10,13 @@ Port of ``molkgnn_tpu/training/trainer.py`` (its single-device paths):
     device;
   * the batches come from the device-resident dataset (``use_device_data``,
     the default): the host draws the epoch's oversampled graph ids and the
-    batch is assembled on the device (``graphs/device_pack.py``); with
+    batch is assembled on the device (``graphs/device_pack.py`` for kgnn's
+    ``BatchSpec``, ``graphs/device_points.py`` for the point families'
+    ``PointBatchSpec``: ``serving/predictor.py::device_pipeline``); with
     ``device_sampling`` the ids are drawn on the device too, from an alias
     table and a generator of their own, ``ceil(n_train / B)`` full batches
-    an epoch; or from the host loader (``GraphLoader``) when
-    ``use_device_data=False``;
+    an epoch; or from the host loader (``GraphLoader``, with the family's
+    collate) when ``use_device_data=False``;
   * ``scan_steps = K > 1`` on the card: the first use captures one whole
     train step (batch assembly from a static id buffer or the device
     sampler, forward with the scorer kernel, loss, backward, gradient fill
@@ -73,15 +75,11 @@ from molkgnn_torch.data.dataset import (
     epoch_order,
     oversampling_weights,
 )
-from molkgnn_torch.graphs.batch import BatchSpec, GraphBatch
 from molkgnn_torch.graphs.device_pack import (
-    DeviceDataset,
     alias_sampler,
-    gather_batch,
     pad_ids,
     sample_ids,
 )
-from molkgnn_torch.graphs.packed import PackedGraphs
 from molkgnn_torch.models.common import Dropout
 from molkgnn_torch.ops.support_score import (
     add_launches,
@@ -89,7 +87,12 @@ from molkgnn_torch.ops.support_score import (
     take_launches,
 )
 from molkgnn_torch.serving.blocks import BlockScorer
-from molkgnn_torch.serving.predictor import resolve_device
+from molkgnn_torch.serving.predictor import (
+    device_pipeline,
+    host_pipeline_for_spec,
+    resolve_device,
+    spec_family,
+)
 from molkgnn_torch.training.checkpoint import (
     SUFFIX,
     load_checkpoint,
@@ -170,7 +173,7 @@ class Trainer:
         self,
         model: nn.Module,
         dataset: Dataset,
-        spec: BatchSpec,
+        spec,
         config: TrainConfig,
         device: Optional[str | torch.device] = None,
         monitor=None,
@@ -222,11 +225,14 @@ class Trainer:
         ))
         self._train_ids = train_ids
         self._train_labels = np.array([dataset.graphs[i].y for i in train_ids])
+        # The spec's batch family: the host loader's collate (None: kgnn's
+        # flat-packed loader) and the device dataset and gather.
+        self._collate = (host_pipeline_for_spec(spec)[1]
+                         if spec_family(spec) == "point" else None)
+        build, self._gather = device_pipeline(spec)
         self._device_data = None
         if config.use_device_data:
-            self._device_data = DeviceDataset.from_packed(
-                PackedGraphs.from_graphs(dataset.graphs), self.device
-            )
+            self._device_data = build(dataset.graphs, self.device)
         self._sampler = None
         if config.device_sampling:
             if self._device_data is None:
@@ -263,7 +269,7 @@ class Trainer:
         return int(self.optimizer.count)
 
     # ------------------------------------------------------------------
-    def _loss(self, batch: GraphBatch) -> torch.Tensor:
+    def _loss(self, batch) -> torch.Tensor:
         """Train-mode forward and loss, gradients zeroed in place."""
         self.model.train()
         self.optimizer.zero_grad()
@@ -280,7 +286,7 @@ class Trainer:
             clip_by_global_norm(self._params, self.config.grad_clip_norm)
         self.optimizer.step(self._lr(self.optimizer.count), ok)
 
-    def _step(self, batch: GraphBatch) -> torch.Tensor:
+    def _step(self, batch) -> torch.Tensor:
         """One train step; returns the loss, left on the device."""
         loss = self._loss(batch)
         loss.backward()
@@ -292,7 +298,7 @@ class Trainer:
         """One train step on the batch of graph ids [B] (-1 padded),
         assembled on the device."""
         ids_dev = torch.as_tensor(ids, device=self.device)
-        return self._step(gather_batch(self._device_data, ids_dev, self.spec))
+        return self._step(self._gather(self._device_data, ids_dev, self.spec))
 
     def _device_step(self) -> torch.Tensor:
         """One train step with no host input and no host readback: ids
@@ -304,7 +310,7 @@ class Trainer:
                              self.config.batch_size)
         else:
             ids = self._graph_ids
-        return self._step(gather_batch(self._device_data, ids, self.spec))
+        return self._step(self._gather(self._device_data, ids, self.spec))
 
     def _capture(self) -> None:
         """Capture ``_device_step`` as a CUDA graph, with the Trainer's
@@ -414,7 +420,8 @@ class Trainer:
     def _predict(self, graphs):
         """(labels, predictions) of ``graphs``, packed on the host; one
         readback of the predictions."""
-        loader = GraphLoader(graphs, self.spec, self.config.batch_size)
+        loader = GraphLoader(graphs, self.spec, self.config.batch_size,
+                             collate=self._collate)
         self.model.eval()
         preds, masks, trues = [], [], []
         for batch in loader:
@@ -489,6 +496,7 @@ class Trainer:
                 shuffle=not cfg.oversample,
                 oversample=cfg.oversample,
                 seed=self.id_rng,
+                collate=self._collate,
             )
         for epoch in range(start_epoch, cfg.max_epochs):
             t0 = time.time()
@@ -635,7 +643,8 @@ class Trainer:
         graphs = self.dataset.subset(part)
         self.model.eval()
         embs, masks = [], []
-        for batch in GraphLoader(graphs, self.spec, self.config.batch_size):
+        for batch in GraphLoader(graphs, self.spec, self.config.batch_size,
+                                 collate=self._collate):
             embs.append(self.model(batch.to(self.device))[1])
             masks.append(batch.graph_mask.numpy())
         all_emb = torch.cat(embs).cpu().numpy()

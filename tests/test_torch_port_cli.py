@@ -198,7 +198,7 @@ def test_cli_validate_and_test_without_checkpoints(tmp_path, dataset_path,
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--gnn_type", "schnet"], "A11"),
+    (["--gnn_type", "chironet", "--F_H", "32"], "A11"),
     (["--gnn_type=chironet"], "A11"),
     (["--num_devices", "2"], "A12"),
     (["--model_parallel", "halo"], "A13"),

@@ -519,3 +519,143 @@ def test_cuda_train_capture_unchanged_by_an_evaluation_capture(tmp_path):
                                rtol=1e-5)
     assert _max_param_diff(eager, graphed) <= 1e-5
     assert runs[1][1] == runs[4][1] == 2 * 16 + 2 * 2
+
+
+# ------------------------------------------------------ the point families
+POINT_SMALL = {
+    "schnet": dict(num_layers=2, hidden_channels=16, num_filters=16,
+                   num_gaussians=10, out_channels=8),
+    "dimenet_pp": dict(num_blocks=2, hidden_channels=16, out_channels=8,
+                       int_emb_size=8, basis_emb_size=4, out_emb_channels=16,
+                       num_spherical=3, num_radial=4),
+    "spherenet": dict(num_layers=2, hidden_channels=16, out_channels=8,
+                      int_emb_size=8, basis_emb_size_dist=4,
+                      basis_emb_size_angle=4, basis_emb_size_torsion=4,
+                      out_emb_channels=16, num_spherical=3, num_radial=4),
+}
+POINT_CUTOFF = 3.5
+
+
+def _point_setup(name, n=24, batch=8, seed=12):
+    """(molecules of at most 12 atoms, the family's spec at ``batch``, a
+    small GNNModel of the family with weights from a seed)."""
+    from molkgnn_torch.data.synthetic import random_dataset
+    from molkgnn_torch.models.registry import get_family
+    from molkgnn_torch.training.model import GNNModel
+
+    graphs = random_dataset(seed=seed, num_graphs=n)
+    for g in graphs:
+        k = min(g.num_nodes, 12)
+        g.p, g.atomic_num, g.x = g.p[:k], g.atomic_num[:k], g.x[:k]
+    family = get_family(name)
+    spec = family.make_spec(graphs, batch, cutoff=POINT_CUTOFF)
+    gen = torch.Generator().manual_seed(seed)
+    model = GNNModel(family.make_encoder(cutoff=POINT_CUTOFF, generator=gen,
+                                         **POINT_SMALL[name]),
+                     ffn_dropout_rate=0.0, generator=gen)
+    return graphs, spec, model
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(POINT_SMALL))
+def test_cuda_gather_points_matches_batch_points(name):
+    """The on-card point gather equals the host packer bit for bit."""
+    _needs_card()
+    from molkgnn_torch.graphs.device_pack import pad_ids
+    from molkgnn_torch.graphs.device_points import (
+        DevicePointDataset,
+        gather_points,
+    )
+    from molkgnn_torch.graphs.geometric import batch_points
+
+    graphs, spec, _ = _point_setup(name)
+    data = DevicePointDataset.from_graphs(graphs, spec, "cuda")
+    for ids in ([0, 1, 2, 3, 4, 5, 6, 7], [20, 3, 9], []):
+        idv = torch.as_tensor(pad_ids(np.asarray(ids, np.int32), 8),
+                              device="cuda")
+        got = gather_points(data, idv, spec)
+        want = batch_points([graphs[i] for i in ids], spec)
+        for a, b in zip(got.leaves(), want.leaves()):
+            assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(POINT_SMALL))
+def test_cuda_point_forward_fp64_matches_cpu(name):
+    """The family's forward in float64 on the card against the CPU, same
+    weights and batch: within 1e-9."""
+    _needs_card()
+    import dataclasses
+
+    from molkgnn_torch.graphs.geometric import batch_points
+
+    graphs, spec, model = _point_setup(name)
+    batch = batch_points(graphs[:8], spec)
+    batch = dataclasses.replace(batch, pos=batch.pos.double(),
+                                y=batch.y.double())
+    model = model.double().eval()
+    with torch.no_grad():
+        want = model(batch)
+        got = model.cuda()(batch.to("cuda"))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float64
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-9,
+                                   atol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(POINT_SMALL))
+def test_cuda_point_graphed_steps_equal_eager(tmp_path, name):
+    """2 epochs with device sampling, eager against scan_steps=4 (a
+    captured step replayed): the first 3 losses within 1e-5 relative (the
+    atomics' last bits grow with the steps), all finite; no scorer
+    launch."""
+    _needs_card()
+    from molkgnn_torch.data.dataset import QSAR_METRICS, Dataset, _split
+    from molkgnn_torch.training.trainer import TrainConfig, Trainer
+
+    graphs, spec, model = _point_setup(name, n=80, batch=8)
+    dataset = Dataset("points", graphs, _split(np.random.default_rng(0), 80),
+                      list(QSAR_METRICS), "bce_with_logits")
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    runs = {}
+    before = (ss.grouped_support_score.launches,
+              ss.fused_support_score.launches)
+    for k in (1, 4):
+        model.load_state_dict(sd)
+        trainer = Trainer(model, dataset, spec, TrainConfig(
+            batch_size=8, max_epochs=2, scan_steps=k, oversample=True,
+            device_sampling=True, warmup_iterations=4, progress=False,
+            log_dir=str(tmp_path / str(k))))
+        trainer.fit()
+        runs[k] = trainer.step_losses
+    assert len(runs[1]) == len(runs[4]) == 16
+    assert np.isfinite(runs[1]).all() and np.isfinite(runs[4]).all()
+    np.testing.assert_allclose(runs[4][:3], runs[1][:3], rtol=1e-5)
+    assert (ss.grouped_support_score.launches,
+            ss.fused_support_score.launches) == before
+
+
+@pytest.mark.cuda
+def test_cuda_point_screen_and_export():
+    """SphereNet on the card: screen_library (captured blocks) equals
+    predict_graphs, and the exported program loads and scores the same."""
+    _needs_card()
+    import tempfile
+
+    from molkgnn_torch.graphs.geometric import PointBatchSpec, batch_points
+    from molkgnn_torch.serving.predictor import Predictor
+
+    graphs, spec, model = _point_setup("spherenet", n=40)
+    pred = Predictor(model, model.state_dict(), spec)
+    want = pred.predict_graphs(graphs)
+    got = pred.screen_library(graphs, slab=24)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = tmp + "/spherenet.pt2"
+        pred.export(path)
+        call, got_spec = Predictor.load_exported(path)
+    assert isinstance(got_spec, PointBatchSpec) and got_spec == spec
+    out, _ = call(batch_points(graphs[:8], spec))
+    np.testing.assert_allclose(out.cpu().numpy(), want[:8], rtol=1e-5,
+                               atol=1e-5)

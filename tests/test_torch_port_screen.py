@@ -35,7 +35,7 @@ from molkgnn_torch.training.trainer import TrainConfig, Trainer
 from molkgnn_tpu.cli import import_ckpt as j_import
 from molkgnn_tpu.cli import screen as j_screen
 from molkgnn_tpu.graphs import batch as j_batch
-from molkgnn_tpu.graphs.geometric import PointBatchSpec
+from molkgnn_tpu.graphs.chiro import ChiroBatchSpec
 from molkgnn_tpu.graphs.molgraph import MolGraph as JMolGraph
 from molkgnn_tpu.models.kgnn import MolKGNNNet as JMolKGNNNet
 from molkgnn_tpu.serving.predictor import Predictor as JPredictor
@@ -135,15 +135,18 @@ def _refusal(case, setup):
     if case == "mesh":
         return NotImplementedError, "A12", lambda: _port(
             v, spec).screen_library(graphs, mesh=object())
-    point = PointBatchSpec(num_graphs=8, num_nodes=64, num_edges=256,
-                           num_triplets=0, cutoff=5.0)
-    return NotImplementedError, "A11", lambda: _port(v, point)
+    chiro = ChiroBatchSpec(num_graphs=8, num_nodes=64, num_edges=256,
+                           num_dist=64, num_angles=64, num_dihedrals=64,
+                           num_alpha=64)
+    return NotImplementedError, "A11", lambda: _port(v, chiro)
 
 
+# "point_spec" keeps its name from when the point family was the unported
+# one; it now holds the ChIRoNet spec, the family still unported.
 @pytest.mark.parametrize("case", ["overflow", "mesh", "point_spec"])
 def test_screen_library_refusals(setup, case):
     """An overflowing batch raises before any scoring (the device gather
-    would truncate it); data-parallel screening and the point-cloud batch
+    would truncate it); data-parallel screening and the ChIRoNet batch
     family are not ported and say which ROADMAP item holds them."""
     err, match, call = _refusal(case, setup)
     with pytest.raises(err, match=match):

@@ -132,6 +132,14 @@ import molkgnn_torch.cli.entry
 import molkgnn_torch.cli.import_ckpt
 import molkgnn_torch.cli.screen
 import molkgnn_torch.serving.blocks
+import molkgnn_torch.graphs.geometric
+import molkgnn_torch.graphs.device_points
+import molkgnn_torch.ops.basis
+import molkgnn_torch.models.schnet
+import molkgnn_torch.models.dimenetpp
+import molkgnn_torch.models.spherenet
+import molkgnn_torch.models.registry
+import molkgnn_torch.tools.enantiomer
 import chip_smoke
 loaded = sorted(m for m in sys.modules if banned(m))
 assert not loaded, loaded
