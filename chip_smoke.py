@@ -115,6 +115,29 @@ Phases, in order; any failure exits non-zero and prints no result line:
               (i) the three enantiomer configurations through the CLI at
               6,000 inactives (molkgnn_torch/tools/enantiomer.py),
               printed beside the JAX-CPU records.
+  9. chironet: ChIRoNet at its published widths (the encoder's defaults:
+              F_H 64, EConv MLP (32, 32), GAT 64 then F_H with 4 heads,
+              f_z (8, 8, 8), sigmoid c, sum reduction, molecule output),
+              random weights from the seed, on the 29 scaffold SMILES of
+              benchmarks/quality_run.py embedded under 8 seeds and repeated
+              to 8192 molecules. (a) host featurisation (mol_to_chiro_graph)
+              and packing per 1,000 molecules; the batch, as in phase 8;
+              (b) Trainer.fit, 2 epochs with device sampling, eager against
+              replayed (scan_steps=16): the first 3 losses within 1e-5
+              relative, train graphs/s of both, the replayed step's CUDA
+              events and idle share; (c) predict_graphs end to end,
+              forward only and screen_library, graphs/s, ABCCBA; (d) 8
+              molecules on the card against the CPU, for that model and
+              one with chiral message passing and softmax c: fp64 within
+              1e-9, fp32 within 1e-4 of fp64 (relative to the largest
+              value); (e) gather_chiro equal to batch_chiro bit for bit;
+              (f) the mirror contract on phase 6's mirror pairs: the R/S
+              tags flip and the outputs move; (g) both scorer wrappers
+              launch 0 times on every ChIRoNet path, counted; (h) ChIRoNet
+              through the import and screen CLIs, the CSV within 1e-4 of a
+              Predictor (records with no dihedral empty); (i) the
+              enantiomer configuration through the CLI at 6,000 inactives,
+              beside the JAX-CPU record.
 
 The last lines are the records of the phases' numbers, the kernel record
 ({"kernels": [...]}), the card's name and power limit, and
@@ -123,6 +146,7 @@ The last lines are the records of the phases' numbers, the kernel record
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import statistics
@@ -160,6 +184,23 @@ SLAB = 100_000
 POINT_MOLECULES = {"schnet": 8192, "dimenet_pp": 2048, "spherenet": 512}
 POINT_MEMORY = 40 * 2**30
 POINT_EXPORT = "schnet"
+# Phase 9: ChIRoNet on the scaffold set of benchmarks/quality_run.py (its
+# ACTIVE_SMILES and INACTIVE_SMILES, copied), each embedded under
+# CHIRO_SEEDS seeds and the conformers repeated to NUM_MOLECULES.
+ACTIVE_SMILES = [
+    "CC(C)Cc1ccc(cc1)C(C)C(=O)O", "CC(=O)Oc1ccccc1C(=O)O",
+    "CN1C=NC2=C1C(=O)N(C(=O)N2C)C", "CC(=O)NC1=CC=C(O)C=C1",
+    "ClC1=CC=C(C=C1)C(=O)O", "NC(=O)c1ccccc1", "CC(C)(C)c1ccc(O)cc1",
+    "Oc1ccccc1",
+]
+INACTIVE_SMILES = [
+    "CCO", "CC(=O)O", "CCN", "CCC", "CCCC", "CC(C)C", "CCOC", "CCS",
+    "CNC", "COC", "CCCl", "CCBr", "CCF", "CC(N)=O", "CC(C)O", "CCCO",
+    "CCCC(=O)O", "CCOC(=O)C", "CCCCCCCC", "CC1CCCCC1", "OCC(O)CO",
+]
+CHIRO_SEEDS = 8
+# Phase 9(d)'s second model: chiral message passing with softmax c.
+CHIRO_CMP = {"chiral_message_passing": True, "c_normalization": "softmax"}
 # The CLI epoch's evaluation at AID 1798's full counts while it ran eager,
 # batch by batch: 194 batches of 32 in 6.6 s on an NVIDIA H100 80GB HBM3 at
 # 700 W (PERF.md, section 5); phase 7(c) prints its own beside it.
@@ -1567,22 +1608,25 @@ class Smoke:
         self.points_record["seconds"] = secs
         log(f"  phase 8 took {secs:.1f} s")
 
-    def point_model(self, name, dtype=None):
+    def family_model(self, name, dtype=None, **options):
         """GNNModel of the family at its published width (the encoder's
-        defaults), random weights from the seed."""
+        defaults, with ``options``), random weights from the seed."""
         from molkgnn_torch.models.registry import get_family
         from molkgnn_torch.training.model import GNNModel
 
         gen = self.torch.Generator().manual_seed(SEED)
-        model = GNNModel(get_family(name).make_encoder(generator=gen),
+        model = GNNModel(get_family(name).make_encoder(generator=gen,
+                                                       **options),
                          generator=gen)
         return model if dtype is None else model.to(dtype)
 
-    def point_step_peak(self, model, data, spec, ids):
+    def step_peak(self, model, data, spec, ids):
         """Peak device bytes of one forward and backward of the batch
         ``ids`` (None when the card runs out of memory)."""
-        from molkgnn_torch.graphs.device_points import gather_points
+        from molkgnn_torch.serving.predictor import device_pipeline
         from molkgnn_torch.training.model import bce_with_logits_loss
+
+        gather_points = device_pipeline(spec)[1]
 
         torch = self.torch
         model.eval()
@@ -1656,7 +1700,7 @@ class Smoke:
         # The batch: the largest power of two <= 1024 (and <= the number
         # of molecules) whose train step on the heaviest molecules peaks
         # under POINT_MEMORY.
-        model = self.point_model(name).cuda()
+        model = self.family_model(name).cuda()
         heavy = np.argsort([-(x[2].shape[1] or x[1].shape[1] or x[0].shape[1])
                             for x in levels], kind="stable")
         probes = []
@@ -1665,7 +1709,7 @@ class Smoke:
                 continue
             spec = family.make_spec(fresh, b)
             ids = torch.as_tensor(heavy[:b].astype(np.int32), device="cuda")
-            peak = self.point_step_peak(model, data, spec, ids)
+            peak = self.step_peak(model, data, spec, ids)
             caps = {"nodes": spec.num_nodes, "edges": spec.num_edges,
                     "triplets": spec.num_triplets, "quads": spec.num_quads}
             probes.append({"batch": b, "caps": caps, "peak_bytes": peak})
@@ -1690,7 +1734,7 @@ class Smoke:
                      list(QSAR_METRICS), "bce_with_logits")
         train = {}
         for k in (1, 16):
-            trainer = Trainer(self.point_model(name), ds, spec, TrainConfig(
+            trainer = Trainer(self.family_model(name), ds, spec, TrainConfig(
                 batch_size=B, max_epochs=2, scan_steps=k, oversample=True,
                 device_sampling=True, progress=False,
                 log_dir=os.path.join(tmp, f"points_{name}_{k}")),
@@ -1731,7 +1775,7 @@ class Smoke:
 
         # (c) serving: predict_graphs end to end, forward only, and
         # screen_library over the molecules, ABCCBA.
-        model = self.point_model(name)
+        model = self.family_model(name)
         sd = {k: v.clone() for k, v in model.state_dict().items()}
         pred = Predictor(model, sd, spec, device="cuda")
         batches = [batch_points(mols[s:s + B], spec).to("cuda")
@@ -1773,11 +1817,11 @@ class Smoke:
         spec8 = family.make_spec(mols[:8], 8)
         b8 = batch_points(mols[:8], spec8)
         b64 = dataclasses.replace(b8, pos=b8.pos.double(), y=b8.y.double())
-        m64 = self.point_model(name, torch.float64).eval()
+        m64 = self.family_model(name, torch.float64).eval()
         with torch.no_grad():
             want = m64(b64)[1].numpy()
             got64 = m64.cuda()(b64.to("cuda"))[1].cpu().numpy()
-            got32 = self.point_model(name).cuda().eval()(
+            got32 = self.family_model(name).cuda().eval()(
                 b8.to("cuda"))[1].cpu().numpy()
         scale = max(1.0, float(np.abs(want).max()))
         d64 = float(np.abs(got64 - want).max()) / scale
@@ -1804,7 +1848,7 @@ class Smoke:
             "bit (3 id sets, one padded)")
 
         # (f) the mirror contract on the card.
-        model = self.point_model(name).cuda().eval()
+        model = self.family_model(name).cuda().eval()
         batch = batch_points(mols[:B], spec).to("cuda")
         flip = torch.tensor([-1.0, 1.0, 1.0], device="cuda")
         with torch.no_grad():
@@ -1826,27 +1870,32 @@ class Smoke:
         gc.collect()
         torch.cuda.empty_cache()
         if name == POINT_EXPORT:
-            rec["export"] = self.point_export(name, tmp)
+            rec["export"] = self.family_export(name, tmp)
         return rec
 
-    def point_export(self, name, tmp):
+    def family_export(self, name, tmp):
         """(h) A reference-layout .ckpt of the family through the import CLI
         (exported on the card) and the screen CLI on an SDF library: the
-        CSV against a Predictor with the same weights."""
+        CSV against a Predictor with the same weights; a record the family
+        cannot featurize (for ChIRoNet, no dihedral) has an empty cell."""
         import numpy as np
 
-        from molkgnn_torch.chem.features import mol_to_graph
         from molkgnn_torch.chem.sdf import parse_sdf
         from molkgnn_torch.cli import import_ckpt, screen
         from molkgnn_torch.models.registry import get_family
-        from molkgnn_torch.serving.predictor import Predictor
+        from molkgnn_torch.serving.predictor import (
+            Predictor,
+            host_pipeline_for_spec,
+        )
         from molkgnn_torch.tools.enantiomer import write_enantiomer_sdfs
 
         torch = self.torch
-        lib_dir = os.path.join(tmp, f"points_{name}_lib")
+        family = get_family(name)
+        to_graph = host_pipeline_for_spec(family.make_spec([], 1))[0]
+        lib_dir = os.path.join(tmp, f"export_{name}_lib")
         write_enantiomer_sdfs(lib_dir, 32, 96)
         sdf = os.path.join(lib_dir, "1798_inactives_new.sdf")
-        model = self.point_model(name)
+        model = self.family_model(name)
         ckpt = os.path.join(lib_dir, "ref.ckpt")
         torch.save({"state_dict": {"model." + k: v for k, v in
                                    model.state_dict().items()}}, ckpt)
@@ -1861,20 +1910,25 @@ class Smoke:
         if rc:
             raise AssertionError(f"{name}: the import or screen CLI failed")
         with open(csv) as f:
-            got = np.array([float(line.split(",")[1])
-                            for line in f.read().splitlines()[1:]])
-        graphs = [mol_to_graph(m, y=0.0, idx=i)
+            cells = [line.split(",")[1] for line in f.read().splitlines()[1:]]
+        graphs = [to_graph(m, y=0.0, idx=i)
                   for i, (m, _) in enumerate(parse_sdf(sdf))]
-        spec = get_family(name).make_spec(graphs, 32)
+        empty = [i for i, g in enumerate(graphs) if g is None]
+        graphs = [g for g in graphs if g is not None]
+        got = np.array([float(c) for c in cells if c])
+        spec = family.make_spec(graphs, 32)
         want = Predictor(model, model.state_dict(), spec,
                          device="cuda").predict_graphs(graphs)
         diff = float(np.abs(got - want).max())
         log(f"    (h) {name}: import CLI -> exported program -> screen CLI "
-            f"on {len(graphs)} SDF records: CSV against the Predictor max "
-            f"|diff| {diff:.3e} (limit 1e-4)")
-        if got.shape != want.shape or diff > 1e-4:
+            f"on {len(cells)} SDF records ({len(empty)} not featurizable, "
+            f"empty cells): CSV against the Predictor max |diff| "
+            f"{diff:.3e} (limit 1e-4)")
+        if (got.shape != want.shape or diff > 1e-4
+                or [i for i, c in enumerate(cells) if not c] != empty):
             raise AssertionError(f"{name}: the exported CSV disagrees")
-        return {"records": len(graphs), "csv_vs_predictor": diff}
+        return {"records": len(cells), "empty": len(empty),
+                "csv_vs_predictor": diff}
 
     def point_quality(self, tmp):
         """(i) The enantiomer configurations of the point families through
@@ -1898,6 +1952,323 @@ class Smoke:
                 f"(JAX-CPU at 61,645 inactives {rec['logAUC_0.001_0.1']:.4f}"
                 f" / {rec['AUC']:.4f}); CLI {r['cli_s']:.1f} s")
         return out
+
+    # ------------------------------------------------------------ phase 9
+    def phase_chiro(self, tmp):
+        """ChIRoNet at its published widths through ingest, Trainer,
+        Predictor, screening, the import and screen CLIs and the enantiomer
+        CLI run, with the checks of the module doc. Every path counts the
+        scorer's launches from 0: they must be 0."""
+        t_phase = time.perf_counter()
+        self.chiro_record, self.chiro_launches = {}, {}
+        export = functools.partial(self.family_export, "chironet")
+        for path, run in (("family", self.chiro_family),
+                          ("export", export),
+                          ("quality", self.chiro_quality)):
+            reset_launches()
+            self.chiro_record[path] = run(tmp)
+            self.chiro_launches[path] = launch_counts()
+        log(f"  (g) scorer launches on the ChIRoNet paths (each counted "
+            f"from 0): {self.chiro_launches}")
+        if any(v for c in self.chiro_launches.values() for v in c.values()):
+            raise AssertionError("a scorer kernel launched on a ChIRoNet "
+                                 "path")
+        secs = time.perf_counter() - t_phase
+        self.chiro_record["seconds"] = secs
+        log(f"  phase 9 took {secs:.1f} s")
+
+    def chiro_molecules(self):
+        """(the scaffold set's ChiroGraphs, featurisation seconds): each
+        SMILES embedded under CHIRO_SEEDS seeds, actives labelled 1."""
+        from molkgnn_torch.chem.embed import embed_molecule
+        from molkgnn_torch.chem.smiles import parse_smiles
+        from molkgnn_torch.graphs.chiro import mol_to_chiro_graph
+
+        mols = []
+        for seed in range(CHIRO_SEEDS):
+            for label, pool in ((1.0, ACTIVE_SMILES), (0.0, INACTIVE_SMILES)):
+                for smi in pool:
+                    mol = parse_smiles(smi, add_hs=True)
+                    pos = embed_molecule(mol, seed=seed, iterations=60)
+                    for a, p in zip(mol.atoms, pos):
+                        a.x, a.y, a.z = map(float, p)
+                    mols.append((mol, label, smi))
+        t0 = time.perf_counter()
+        graphs = [mol_to_chiro_graph(m, y=y, idx=i, smiles=smi)
+                  for i, (m, y, smi) in enumerate(mols)]
+        feat_s = time.perf_counter() - t0
+        if any(g is None for g in graphs):
+            raise AssertionError("a scaffold molecule has no dihedral")
+        return graphs, feat_s
+
+    def chiro_family(self, tmp):
+        import dataclasses
+        import gc
+
+        import numpy as np
+
+        from molkgnn_torch.data.dataset import QSAR_METRICS, Dataset, _split
+        from molkgnn_torch.graphs.chiro import batch_chiro
+        from molkgnn_torch.graphs.device_chiro import (
+            DeviceChiroDataset,
+            gather_chiro,
+        )
+        from molkgnn_torch.graphs.device_pack import pad_ids
+        from molkgnn_torch.models.registry import get_family
+        from molkgnn_torch.serving.predictor import Predictor
+        from molkgnn_torch.training.trainer import TrainConfig, Trainer
+
+        torch = self.torch
+        card = torch.cuda.get_device_name(0)
+        name = "chironet"
+        family = get_family(name)
+        conformers, feat_s = self.chiro_molecules()
+        mols = [dataclasses.replace(conformers[i % len(conformers)], idx=i)
+                for i in range(NUM_MOLECULES)]
+        rec = {"molecules": len(mols), "conformers": len(conformers)}
+        log(f"  chironet: {len(conformers)} conformers of the 29 scaffold "
+            f"SMILES repeated to {len(mols)} molecules, published width")
+
+        # (a) ingest: host featurisation, then packing and the copy to the
+        # card.
+        t0 = time.perf_counter()
+        data = DeviceChiroDataset.from_graphs(mols, "cuda")
+        torch.cuda.synchronize()
+        pack_s = time.perf_counter() - t0
+        counts = np.asarray([g.counts() for g in mols], np.int64)
+        feat_k = 1e3 * feat_s / len(conformers)
+        pack_k = 1e3 * pack_s / len(mols)
+        rec["ingest"] = {"featurize_s_per_1000": feat_k,
+                         "pack_s_per_1000": pack_k,
+                         "totals": counts.sum(axis=0).tolist()}
+        log(f"    (a) ingest: mol_to_chiro_graph {feat_k:.3f} s per 1,000 "
+            f"molecules ({len(conformers)} timed), packing and copy "
+            f"{pack_k:.4f} s per 1,000 (host); totals (nodes, edges, "
+            f"distances, angles, dihedrals, alpha) "
+            f"{counts.sum(axis=0).tolist()}")
+
+        # The batch, as in phase 8, on the molecules with the most edges
+        # (the EConv's per-edge weight matrices dominate).
+        model = self.family_model(name).cuda()
+        heavy = np.argsort(-counts[:, 1], kind="stable")
+        probes = []
+        for b in (1024, 512, 256, 128, 64, 32, 16, 8):
+            if b > len(mols):
+                continue
+            spec = family.make_spec(mols, b)
+            ids = torch.as_tensor(heavy[:b].astype(np.int32), device="cuda")
+            peak = self.step_peak(model, data, spec, ids)
+            caps = dict(zip(("nodes", "edges", "distances", "angles",
+                             "dihedrals", "alpha"), spec.capacities()))
+            probes.append({"batch": b, "caps": caps, "peak_bytes": peak})
+            log(f"    batch {b}: caps {caps}; a train step on the heaviest "
+                f"molecules peaks at "
+                f"{'out of memory' if peak is None else f'{peak} bytes'}")
+            if peak is not None and peak < POINT_MEMORY:
+                break
+        else:
+            raise AssertionError(f"{name}: no batch fits")
+        B = spec.num_graphs
+        rec.update(batch=B, caps=caps, peak_bytes=peak, probes=probes)
+        log(f"    batch {B} (peak {peak / 2**30:.2f} GiB < "
+            f"{POINT_MEMORY / 2**30:.0f} GiB)")
+        del model
+        gc.collect()
+
+        # (b) training: 2 epochs with device sampling, eager against
+        # replayed (scan_steps=16), from the same weights.
+        ds = Dataset(name, mols, _split(np.random.default_rng(SEED + 1),
+                                        len(mols)),
+                     list(QSAR_METRICS), "bce_with_logits")
+        train = {}
+        for k in (1, 16):
+            trainer = Trainer(self.family_model(name), ds, spec, TrainConfig(
+                batch_size=B, max_epochs=2, scan_steps=k, oversample=True,
+                device_sampling=True, progress=False,
+                log_dir=os.path.join(tmp, f"chiro_{k}")), device="cuda")
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            history = trainer.fit()
+            fit_s = time.perf_counter() - t0
+            steps = len(trainer.step_losses) // 2
+            rates = [steps * B / (e["train_dispatch_time_s"]
+                                  + e["train_readback_time_s"])
+                     for e in history]
+            train[k] = {"losses": trainer.step_losses, "graphs_per_s": rates,
+                        "fit_s": fit_s,
+                        "peak_bytes": torch.cuda.max_memory_allocated()}
+            log(f"    (b) train {'eager' if k == 1 else 'replayed'} on "
+                f"{card}: {', '.join(f'{r:.1f}' for r in rates)} graphs/s "
+                f"by epoch ({steps} steps of {B} an epoch; fit with "
+                f"evaluation {fit_s:.1f} s); first losses "
+                f"{trainer.step_losses[:3]}")
+            if not np.isfinite(trainer.step_losses).all():
+                raise AssertionError(f"{name}: a train loss is not finite")
+            if k > 1:
+                train[k]["replays"] = self.replay_profile(
+                    trainer, f"{name} b{B} replayed step", n=4)
+            trainer = history = None
+            gc.collect()
+            torch.cuda.empty_cache()
+        first = np.asarray(train[1]["losses"][:3])
+        gap = float(np.abs(np.asarray(train[16]["losses"][:3]) - first).max()
+                    / np.abs(first).max())
+        log(f"    eager against replayed, first 3 losses: max relative "
+            f"diff {gap:.3e} (limit 1e-5)")
+        rec["train"] = {"eager": train[1], "replayed": train[16],
+                        "first_losses_rel_diff": gap}
+        if gap > 1e-5:
+            raise AssertionError(f"{name}: replayed losses differ by {gap}")
+
+        # (c) serving: predict_graphs end to end, forward only, and
+        # screen_library over the molecules, ABCCBA.
+        model = self.family_model(name)
+        pred = Predictor(model, model.state_dict(), spec, device="cuda")
+        batches = [batch_chiro(mols[s:s + B], spec).to("cuda")
+                   for s in range(0, len(mols), B)]
+        runs = {"predict_graphs": [], "forward": [], "screen_library": []}
+        outs = {}
+
+        def forward():
+            with torch.inference_mode():
+                for b in batches:
+                    pred.model(b)
+
+        calls = {"predict_graphs": lambda: pred.predict_graphs(mols),
+                 "forward": forward,
+                 "screen_library": lambda: pred.screen_library(mols)}
+        for what in ("predict_graphs", "forward", "screen_library",
+                     "screen_library", "forward", "predict_graphs"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[what] = calls[what]()
+            torch.cuda.synchronize()
+            runs[what].append(len(mols) / (time.perf_counter() - t0))
+        diff = float(np.abs(outs["screen_library"]
+                            - outs["predict_graphs"]).max())
+        scale = float(np.abs(outs["predict_graphs"]).max())
+        for what, r in runs.items():
+            log(f"    (c) {what} on {card}: "
+                f"{', '.join(f'{x:.1f}' for x in r)} graphs/s")
+        log(f"    screen_library against predict_graphs: max |diff| "
+            f"{diff:.3e} (max |score| {scale:.3e})")
+        rec["serve"] = {"graphs_per_s": runs, "screen_vs_predict": diff,
+                        "screen_slabs": pred.screen_slabs}
+        if not np.isfinite(outs["screen_library"]).all() or (
+                diff > 1e-4 * max(1.0, scale)):
+            raise AssertionError(f"{name}: screening disagrees")
+        batches = pred = outs = None
+
+        # (d) the card against the CPU: fp64 within 1e-9, fp32 within 1e-4
+        # of the fp64 values (relative to the largest), for the default
+        # model and one with chiral message passing and softmax c.
+        eight = [conformers[i * 29 // 8] for i in range(8)]
+        b8 = batch_chiro(eight, family.make_spec(eight, 8))
+        b64 = dataclasses.replace(b8, **{
+            f: getattr(b8, f).double()
+            for f in ("x", "edge_attr", "distances", "angles", "dihedrals",
+                      "y")})
+        rec["card_vs_cpu"] = {}
+        for label, options in (("default", {}), ("cmp_softmax", CHIRO_CMP)):
+            m64 = self.family_model(name, torch.float64, **options).eval()
+            with torch.no_grad():
+                want = m64(b64)[1].numpy()
+                got64 = m64.cuda()(b64.to("cuda"))[1].cpu().numpy()
+                got32 = self.family_model(name, **options).cuda().eval()(
+                    b8.to("cuda"))[1].cpu().numpy()
+            scale = max(1.0, float(np.abs(want).max()))
+            d64 = float(np.abs(got64 - want).max()) / scale
+            d32 = float(np.abs(got32 - want).max()) / scale
+            log(f"    (d) {label}, 8 molecules, card against CPU: fp64 "
+                f"{d64:.3e}, fp32 against fp64 {d32:.3e} (relative to max "
+                f"|value| {scale:.3e}; limits 1e-9, 1e-4)")
+            rec["card_vs_cpu"][label] = {"fp64": d64, "fp32": d32}
+            if d64 > 1e-9 or d32 > 1e-4:
+                raise AssertionError(f"{name} {label}: the card disagrees "
+                                     "with the CPU")
+
+        # (e) the device gather against the host packer, bit for bit.
+        rng = np.random.default_rng(SEED)
+        for ids in (np.arange(B), np.arange(len(mols) - B // 2, len(mols)),
+                    rng.choice(len(mols), B, replace=False)):
+            ids = ids.astype(np.int32)
+            got = gather_chiro(data, torch.as_tensor(
+                pad_ids(ids, B), device="cuda"), spec)
+            want = batch_chiro([mols[i] for i in ids], spec)
+            for a, b in zip(got.leaves(), want.leaves()):
+                if not torch.equal(a.cpu(), b):
+                    raise AssertionError(f"{name}: gather_chiro differs")
+        log("    (e) gather_chiro on the card equals batch_chiro bit for "
+            "bit (3 id sets, one padded)")
+        del data
+        rec["mirror"] = self.chiro_mirror(tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        return rec
+
+    def chiro_mirror(self, tmp):
+        """(f) Phase 6's mirror pairs (record i of the actives and of the
+        inactives): every R/S tag flips, and the model's outputs move."""
+        import itertools
+
+        import numpy as np
+
+        from molkgnn_torch.chem.sdf import parse_sdf
+        from molkgnn_torch.graphs.chiro import (
+            batch_chiro,
+            chiro_spec_for_graphs,
+            mol_to_chiro_graph,
+        )
+        from molkgnn_torch.tools.enantiomer import N_ACTIVE
+
+        torch = self.torch
+        raw = os.path.join(tmp, "dataset", "qsar", "clean_sdf", "raw")
+        sides = [[mol_to_chiro_graph(m) for m, _ in itertools.islice(
+            parse_sdf(os.path.join(raw, f"1798_{kind}_new.sdf")), N_ACTIVE)]
+            for kind in ("actives", "inactives")]
+        pairs = [(a, b) for a, b in zip(*sides) if a is not None]
+        if any(b is None for _, b in pairs):
+            raise AssertionError("a mirror image lost its dihedrals")
+        flipped = all(
+            np.array_equal(b.x[:, -8:-6], a.x[:, -8:-6][:, ::-1])
+            and a.x[:, -8:-6].any() for a, b in pairs)
+        plus, minus = zip(*pairs)
+        spec = chiro_spec_for_graphs(list(plus), len(pairs))
+        model = self.family_model("chironet").cuda().eval()
+        with torch.no_grad():
+            a = model(batch_chiro(plus, spec).to("cuda"))[1]
+            b = model(batch_chiro(minus, spec).to("cuda"))[1]
+        diff = float((a - b).abs().max())
+        rel = diff / float(a.abs().max())
+        log(f"    (f) {len(pairs)} mirror pairs of phase 6 "
+            f"({N_ACTIVE - len(pairs)} without a dihedral): R/S tags "
+            f"flipped in every pair {flipped}; outputs max |diff| {diff:.3e} (relative {rel:.3e};"
+            f" want > 1e-6: not invariant)")
+        if not flipped or diff <= 1e-6:
+            raise AssertionError("chironet: the mirror contract fails")
+        return {"pairs": len(pairs), "tags_flipped": flipped,
+                "max_abs_diff": diff, "rel_diff": rel}
+
+    def chiro_quality(self, tmp):
+        """(i) The enantiomer ChIRoNet configuration through the CLI on
+        phase 6's SDF pair (6,000 inactives; the ChIRoNet ingest and its
+        cache run inside the CLI), beside the JAX-CPU record (printed, not
+        asserted)."""
+        from molkgnn_torch.tools import enantiomer
+
+        r = enantiomer.cli_run(os.path.join(tmp, "dataset"),
+                               os.path.join(tmp, "enantiomer_chironet"),
+                               gnn_type="chironet", device="cuda")
+        last, rec = r["test"]["last"], r["jax_cpu_record"]
+        log(f"  (i) enantiomer chironet, {r['epochs']} epochs, "
+            f"{enantiomer.N_ACTIVE + SMOKE_INACTIVES} records: test [last] "
+            f"logAUC[0.001,0.1] {last['logAUC_0.001_0.1']:.4f}, AUC "
+            f"{last['AUC']:.4f} (JAX-CPU at 61,645 inactives "
+            f"{rec['logAUC_0.001_0.1']:.4f} / {rec['AUC']:.4f}); CLI "
+            f"{r['cli_s']:.1f} s")
+        return {"epochs": r["epochs"], "test_last": last,
+                "train_loss": r["train_loss"], "jax_cpu_record": rec,
+                "cli_s": r["cli_s"]}
 
     # ------------------------------------------------------------ record
     def kernel_record(self):
@@ -1941,6 +2312,10 @@ class Smoke:
             new_paths[f"points_{path}"] = (
                 counts, f"phase 8, {path}: not on the point families' "
                 "path (0, counted)")
+        for path, counts in self.chiro_launches.items():
+            new_paths[f"chironet_{path}"] = (
+                counts, f"phase 9, {path}: not on ChIRoNet's path (0, "
+                "counted)")
         for name in ("grouped_support_score", "fused_support_score"):
             if name == "grouped_support_score":
                 (l0, s0, e0) = self.per_request[(name, "layer 0")]
@@ -2049,6 +2424,9 @@ def main() -> int:
             phase = "points"
             log("[8] the point families: SchNet, DimeNet++, SphereNet")
             smoke.phase_points(graphs, tmp)
+            phase = "chironet"
+            log("[9] ChIRoNet")
+            smoke.phase_chiro(tmp)
         record = smoke.kernel_record()
     except Exception:
         traceback.print_exc()
@@ -2063,7 +2441,8 @@ def main() -> int:
                       "cli": smoke.cli_record,
                       "screen": smoke.screen_record,
                       "evaluation": smoke.eval_record,
-                      "points": smoke.points_record}),
+                      "points": smoke.points_record,
+                      "chironet": smoke.chiro_record}),
           flush=True)
     print(json.dumps(record), flush=True)
     print(smi, flush=True)

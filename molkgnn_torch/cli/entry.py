@@ -1,9 +1,10 @@
 """CLI entry point of the port: train / validate / test a model on a dataset.
 
-Port of ``molkgnn_tpu/cli/entry.py`` on one device, for ``--gnn_type``
-kgnn, schnet, dimenet_pp and spherenet: the same flags (every group and
-default of its ``build_parser``, so any argv the JAX CLI takes parses), plus ``--device {cuda,cpu}`` (default
-``cuda``), the counterpart of ``JAX_PLATFORMS``. The derived iteration
+Port of ``molkgnn_tpu/cli/entry.py`` on one device, for every
+``--gnn_type`` (kgnn, schnet, dimenet_pp, spherenet, chironet): the same
+flags (every group and default of its ``build_parser``, so any argv the
+JAX CLI takes parses), plus ``--device {cuda,cpu}`` (default ``cuda``),
+the counterpart of ``JAX_PLATFORMS``. The derived iteration
 budget (tot_iterations = ceil(train/batch)*max_epochs + 2, warmup += 2),
 the dispatch on ``--validate``/``--test``, the artifacts (checkpoints under
 ``default_root_dir/checkpoints`` in the port's ``.pt`` format,
@@ -14,11 +15,12 @@ On the card the kgnn encoder runs the hand-written scorer kernel
 (``MolKGNNNet(use_kernel=True)``); on the CPU the same model takes the
 scorer's plain version. The point families (SchNet, DimeNet++, SphereNet)
 train on point-cloud batches whose spec has the family's ``--cutoff``
-(``models/registry.py``); the kernels (``kernels/``) are written for kgnn
-only, as by the JAX CLI. Not ported yet, and refused with the ROADMAP item
-that holds them: ``--gnn_type chironet`` (A11), ``--num_devices > 1``
-(A12), ``--model_parallel halo|hybrid`` (A13), ``--balanced_batches``
-(A14).
+(``models/registry.py``); ChIRoNet trains on internal-coordinate batches
+(``graphs/chiro.py``) from its own featurisation. The kernels
+(``kernels/``) are written for kgnn only, as by the JAX CLI. Not ported
+yet, and refused with the ROADMAP item that holds them:
+``--num_devices > 1`` (A12), ``--model_parallel halo|hybrid`` (A13),
+``--balanced_batches`` (A14).
 
 Run as ``python -m molkgnn_torch.cli.entry --dataset_name synthetic_motif``
 (add ``--device cpu`` on a machine without a card).
@@ -185,9 +187,6 @@ def build_parser(gnn_type: str) -> argparse.ArgumentParser:
 
 def unported(args) -> str | None:
     """Why ``args`` asks for what the port does not have yet, or None."""
-    if args.gnn_type == "chironet":
-        return ("--gnn_type chironet is not ported to molkgnn_torch yet "
-                "(ROADMAP A11)")
     if args.num_devices > 1:
         return ("--num_devices > 1 (data parallel) is not ported to "
                 "molkgnn_torch yet (ROADMAP A12)")
@@ -250,6 +249,17 @@ def build_model(args):
             num_after_skip=args.num_after_skip,
             num_output_layers=args.num_output_layers, generator=gen,
         )
+    elif args.gnn_type == "chironet":
+        encoder = make(
+            f_h=args.F_H, f_h_econv=args.F_H_EConv,
+            gat_heads=args.GAT_N_heads,
+            chiral_message_passing=args.use_chiral_message_passing,
+            cmp_gat_layers=args.CMP_GAT_N_layers,
+            cmp_gat_heads=args.CMP_GAT_N_heads,
+            c_normalization=args.c_coefficient_normalization,
+            reduction=args.encoder_reduction,
+            dropout=args.dropout, generator=gen,
+        )
     else:  # spherenet
         encoder = make(
             cutoff=args.cutoff, num_layers=args.num_layers,
@@ -278,7 +288,7 @@ def build_spec(args, graphs):
     ``--batch_size``; the point families' with their ``--cutoff``."""
     from molkgnn_torch.models.registry import get_family
 
-    kw = {} if args.gnn_type == "kgnn" else {"cutoff": args.cutoff}
+    kw = {"cutoff": args.cutoff} if hasattr(args, "cutoff") else {}
     return get_family(args.gnn_type).make_spec(
         graphs, batch_size=args.batch_size, **kw)
 
@@ -292,6 +302,11 @@ def load_dataset(args):
     )
 
     name = args.dataset_name
+    if args.gnn_type == "chironet" and name.startswith("synthetic"):
+        raise SystemExit(
+            "--gnn_type chironet needs molecules with bonds and 3D "
+            "positions (a QSAR or D4DCHP dataset); the synthetic datasets "
+            "have neither")
     if name == "synthetic":
         return make_synthetic_dataset(
             seed=args.seed, num_graphs=args.synthetic_graphs

@@ -1,8 +1,9 @@
 """`molkgnn-torch-import`: reference torch checkpoint -> exported model.
 
-Port of ``molkgnn_tpu/cli/import_ckpt.py`` for kgnn, SchNet, DimeNet++ and
-SphereNet. A user of the reference trains with PyTorch Lightning and holds
-a PL ``.ckpt`` or a raw ``state_dict``; this CLI loads it into the port's
+Port of ``molkgnn_tpu/cli/import_ckpt.py`` for every ``--gnn_type``
+(kgnn, SchNet, DimeNet++, SphereNet, ChIRoNet). A user of the reference
+trains with PyTorch Lightning and holds a PL ``.ckpt`` or a raw
+``state_dict``; this CLI loads it into the port's
 model (``training/checkpoint.py::load_torch_checkpoint``, which checks
 every key and shape) and writes the serving artifact of
 ``Predictor.export`` in one step:
@@ -15,10 +16,11 @@ every key and shape) and writes the serving artifact of
 The model-shape flags are the training CLI's (``cli/entry.py``) and must
 match the checkpoint's training configuration. ``--sdf`` gives the library
 the artifact's static batch spec must cover (the point families' with
-their ``--cutoff``). ``--device`` (default ``cuda``) is the device the
-program is exported on, and so the one it serves on: on the card kgnn's
-scorer is the hand-written kernel. Not ported yet, and refused with the ROADMAP item that holds them: what
-``cli/entry.py::unported`` refuses (``--gnn_type chironet``: A11).
+their ``--cutoff``; ChIRoNet's over the molecules that have a dihedral,
+featurized with ``mol_to_chiro_graph``). ``--device`` (default ``cuda``)
+is the device the program is exported on, and so the one it serves on: on
+the card kgnn's scorer is the hand-written kernel. Refused with the
+ROADMAP item that holds them: what ``cli/entry.py::unported`` refuses.
 """
 
 from __future__ import annotations
@@ -75,16 +77,19 @@ def main(argv=None) -> int:
     if reason:
         raise SystemExit(reason)
 
-    from molkgnn_torch.chem.features import mol_to_graph
     from molkgnn_torch.chem.sdf import parse_sdf
     from molkgnn_torch.serving.predictor import Predictor, resolve_device
     from molkgnn_torch.training.checkpoint import load_torch_checkpoint
 
     device = resolve_device(args.device)  # raises for cuda without a card
+    if gnn_type == "chironet":
+        from molkgnn_torch.graphs.chiro import mol_to_chiro_graph as to_graph
+    else:
+        from molkgnn_torch.chem.features import mol_to_graph as to_graph
     graphs = []
     for i, (mol, _data) in enumerate(parse_sdf(args.sdf)):
         if mol is not None:
-            g = mol_to_graph(mol, y=0.0, idx=i)
+            g = to_graph(mol, y=0.0, idx=i)
             if g is not None:
                 graphs.append(g)
     if not graphs:

@@ -9,9 +9,10 @@ configuration:
         --out scores.csv
 
 The CSV is ``record_index,score``, one row per SDF record; a record that
-does not parse has an empty score, at its position. ``--probabilities``
-applies the sigmoid to the finite scores. ``--device`` (default ``cuda``)
-must be the device type the artifact was exported on.
+does not parse, or that the artifact's family cannot featurize (a molecule
+with no dihedral for ChIRoNet), has an empty score, at its position.
+``--probabilities`` applies the sigmoid to the finite scores. ``--device``
+(default ``cuda``) must be the device type the artifact was exported on.
 """
 
 from __future__ import annotations

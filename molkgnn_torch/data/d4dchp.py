@@ -7,10 +7,12 @@ arrays: train, valid, test), SMILES -> embedded 3D graphs. CHIRAL1 is
 binary classification (accuracy, BCE), D4DCHP is docking-score regression
 (RMSE, sum-reduced MSE).
 
-Copy of ``molkgnn_tpu/data/d4dchp.py``, MolGraph branch only (the kgnn
-family): SMILES -> ``chem.embed.smiles_to_graph``, bit-equal to the JAX
-package. The ChIRoNet branch (``graphs/chiro.py``) is not ported yet and
-raises.
+Copy of ``molkgnn_tpu/data/d4dchp.py``: SMILES ->
+``chem.embed.smiles_to_graph`` (kgnn and the point families), or ->
+``graphs/chiro.py::smiles_to_chiro_graph`` for ChIRoNet (rows whose
+molecule has no dihedral are dropped), bit-equal to the JAX package. The
+ChIRoNet cache is the port's own ``.npz`` (``data/qsar.py::
+save_chiro_cache``), never the JAX package's pickle.
 """
 
 from __future__ import annotations
@@ -52,17 +54,28 @@ def load_d4dchp_dataset(
     info = SUBSETS[subset_name]
 
     cache = None
+    chiro = gnn_type == "chironet"
     if cache_dir:
         cache = os.path.join(
-            cache_dir, f"{gnn_type}-d4dchp-{subset_name}.npy"
+            cache_dir,
+            f"{gnn_type}-d4dchp-{subset_name}.{'npz' if chiro else 'npy'}",
         )
-    if cache and os.path.exists(cache):
+    if chiro and cache and os.path.exists(cache):
+        from molkgnn_torch.data.qsar import load_chiro_cache
+
+        graphs = load_chiro_cache(cache)[0]
+        kept = [g.idx for g in graphs]
+    elif cache and os.path.exists(cache):
         payload = np.load(cache, allow_pickle=True).item()
         graphs, kept = payload["graphs"], payload["kept"]
     else:
         graphs, kept = _ingest(data_file, info["label_column"], gnn_type,
                                embed_seed)
-        if cache:
+        if chiro and cache:
+            from molkgnn_torch.data.qsar import save_chiro_cache
+
+            save_chiro_cache(cache, graphs, [])
+        elif cache:
             os.makedirs(os.path.dirname(cache) or ".", exist_ok=True)
             np.save(
                 cache,
@@ -95,12 +108,10 @@ def load_d4dchp_dataset(
 
 def _ingest(data_file: str, label_column: str, gnn_type: str, embed_seed: int):
     from molkgnn_torch.chem.embed import smiles_to_graph
+    from molkgnn_torch.graphs.chiro import smiles_to_chiro_graph
 
-    if gnn_type == "chironet":
-        raise NotImplementedError(
-            "the ChIRoNet ingest (graphs/chiro.py) is not ported yet "
-            "(ROADMAP A11)"
-        )
+    to_graph = (smiles_to_chiro_graph if gnn_type == "chironet"
+                else smiles_to_graph)
     graphs: List = []
     kept: List[int] = []
     with open(data_file) as f:
@@ -108,7 +119,7 @@ def _ingest(data_file: str, label_column: str, gnn_type: str, embed_seed: int):
         for i, row in enumerate(reader):
             smi = row["smiles"]
             label = float(row[label_column])
-            g = smiles_to_graph(smi, y=label, idx=i, seed=embed_seed)
+            g = to_graph(smi, y=label, idx=i, seed=embed_seed)
             if g is None:
                 continue
             graphs.append(g)

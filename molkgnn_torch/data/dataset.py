@@ -182,8 +182,8 @@ class GraphLoader:
     ``seed`` is an int or a ``np.random.Generator`` to draw from. The final
     partial batch is padded with masked graphs, never dropped. ``collate``
     (graphs, spec) -> batch packs another batch family (the point families'
-    ``batch_points``); by default kgnn batches come from the flat-packed
-    dataset.
+    ``batch_points``, ChIRoNet's ``batch_chiro``); by default kgnn batches
+    come from the flat-packed dataset.
     """
 
     def __init__(

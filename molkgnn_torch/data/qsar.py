@@ -11,11 +11,14 @@ Processed caches are a single ``.npz`` per (dataset, backend) — node/edge
 arrays concatenated with per-molecule counts; receptive fields are
 recomputed on load by the vectorized builder (cheap).
 
-Copy of ``molkgnn_tpu/data/qsar.py`` for the MolGraph featurization (the
-kgnn family, which the 3D point-cloud families share): the same splits, the
-same ingest and the same cache files, so each package reads the other's
-caches. The ChIRoNet object cache (``gnn_type="chironet"``) is not ported
-yet and raises.
+Copy of ``molkgnn_tpu/data/qsar.py``: the same splits and the same ingest.
+The MolGraph featurization (the kgnn family, which the 3D point-cloud
+families share) has the same cache files, so each package reads the
+other's. ChIRoNet (``gnn_type="chironet"``) featurizes with
+``graphs/chiro.py::mol_to_chiro_graph`` and drops the molecules with no
+dihedral, as the JAX package does; its cache is the port's own
+(``chironet-{AID}-3D-{backend}.npz``: flat arrays with per-molecule counts,
+no pickle), never the JAX package's pickled ``.npy`` of its own objects.
 """
 
 from __future__ import annotations
@@ -142,16 +145,71 @@ def _cache_path(
     # One cache per (gnn_type, AID, D, backend) — the reference's processed
     # file naming (wrapper.py:391-392). kgnn/schnet/dimenet_pp/spherenet all
     # share the MolGraph featurization (3D models read only z+pos from it).
-    _check_gnn_type(gnn_type)
-    return os.path.join(cache_dir, f"kgnn-{dataset}-3D-{backend}.npz")
+    # ChIRoNet's is an .npz, where the JAX package's is a pickled .npy.
+    kind = "chironet" if gnn_type == "chironet" else "kgnn"
+    return os.path.join(cache_dir, f"{kind}-{dataset}-3D-{backend}.npz")
 
 
-def _check_gnn_type(gnn_type: str) -> None:
-    if gnn_type == "chironet":
-        raise NotImplementedError(
-            "the ChIRoNet ingest (graphs/chiro.py) is not ported yet "
-            "(ROADMAP A11)"
-        )
+# ChiroGraph arrays stored flat: (name, axis along which molecules are
+# concatenated, column of ChiroGraph.counts that sizes them).
+_CHIRO_ARRAYS = (
+    ("x", 0, 0), ("edge_index", 1, 1), ("edge_attr", 0, 1),
+    ("distances", 0, 2), ("distance_index", 0, 2), ("angles", 0, 3),
+    ("angle_index", 0, 3), ("dihedrals", 0, 4), ("dihedral_index", 0, 4),
+    ("ls_map", 0, 4), ("alpha_index", 1, 5),
+)
+
+
+def save_chiro_cache(path: str, graphs, invalid) -> None:
+    """ChiroGraphs and the invalid records as an ``.npz`` of flat arrays
+    with per-molecule counts (no pickled objects)."""
+    from molkgnn_torch.chem.chiro_features import (
+        CHIRO_EDGE_DIM,
+        CHIRO_NODE_DIM,
+    )
+
+    empty = {"x": (0, CHIRO_NODE_DIM), "edge_index": (2, 0),
+             "edge_attr": (0, CHIRO_EDGE_DIM), "distance_index": (0, 2),
+             "angle_index": (0, 3), "dihedral_index": (0, 4),
+             "alpha_index": (2, 0)}
+    arrays = {
+        name: (np.concatenate([getattr(g, name) for g in graphs], axis=ax)
+               if graphs else np.zeros(empty.get(name, (0,))))
+        for name, ax, _ in _CHIRO_ARRAYS
+    }
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez_compressed(
+        path,
+        counts=np.asarray([g.counts() for g in graphs],
+                          np.int64).reshape(-1, 6),
+        y=np.asarray([g.y for g in graphs], np.float64),
+        idx=np.asarray([g.idx for g in graphs], np.int64),
+        smiles=np.asarray([g.smiles for g in graphs], dtype=str),
+        invalid=np.asarray(invalid, np.int64).reshape(-1, 2),
+        **arrays,
+    )
+
+
+def load_chiro_cache(path: str):
+    """(ChiroGraphs, invalid records) of ``save_chiro_cache``; the graphs
+    hold views into the loaded arrays."""
+    from molkgnn_torch.graphs.chiro import ChiroGraph
+
+    with np.load(path, allow_pickle=False) as zf:
+        z = {k: zf[k] for k in zf.files}
+    counts = z["counts"]
+    offs = np.concatenate([np.zeros((1, 6), np.int64),
+                           np.cumsum(counts, axis=0)])
+    graphs = []
+    for i in range(counts.shape[0]):
+        fields = {}
+        for name, ax, col in _CHIRO_ARRAYS:
+            sl = slice(offs[i, col], offs[i + 1, col])
+            fields[name] = z[name][:, sl] if ax else z[name][sl]
+        graphs.append(ChiroGraph(**fields, y=float(z["y"][i]),
+                                 idx=int(z["idx"][i]),
+                                 smiles=str(z["smiles"][i])))
+    return graphs, [tuple(int(v) for v in row) for row in z["invalid"]]
 
 
 def _graph_arrays(graphs: List[MolGraph]) -> Dict[str, np.ndarray]:
@@ -313,7 +371,6 @@ def ingest_qsar_sdf(
     With ``writer``, each graph is flushed to the sharded cache instead of
     accumulated (the returned graph list is empty) — SDF -> features ->
     shard streams with memory bounded by one shard."""
-    _check_gnn_type(gnn_type)
     graphs: List[MolGraph] = []
     invalid: List[Tuple[int, int]] = []
     counter = -1
@@ -333,6 +390,10 @@ def ingest_qsar_sdf(
             counter += 1
             if mol is None:
                 g = None
+            elif gnn_type == "chironet":
+                from molkgnn_torch.graphs.chiro import mol_to_chiro_graph
+
+                g = mol_to_chiro_graph(mol, y=float(label), idx=counter)
             else:
                 g = mol_to_graph(
                     mol, y=float(label), idx=counter, backend=backend
@@ -376,7 +437,9 @@ def load_qsar_dataset(
 
     ``shard_size``: None (default) = stream to a sharded cache when the
     dataset exceeds STREAM_RECORD_THRESHOLD records; 0 = always the
-    single-file cache; >0 = always stream with that shard size.
+    single-file cache; >0 = always stream with that shard size. (The
+    MolGraph cache only; ChIRoNet's is always one file, as in the JAX
+    package.)
     """
     if dataset not in DATASET_INFO:
         raise ValueError(f"Invalid dataset name {dataset}")
@@ -388,7 +451,14 @@ def load_qsar_dataset(
         shard_size = (
             DEFAULT_SHARD_SIZE if n_records > STREAM_RECORD_THRESHOLD else 0
         )
-    if os.path.exists(cpath):
+    if gnn_type == "chironet":
+        if os.path.exists(cpath):
+            graphs, invalid = load_chiro_cache(cpath)
+        else:
+            graphs, invalid = ingest_qsar_sdf(root, dataset, backend=backend,
+                                              gnn_type=gnn_type)
+            save_chiro_cache(cpath, graphs, invalid)
+    elif os.path.exists(cpath):
         graphs, invalid = load_graph_cache(cpath)
     elif os.path.exists(cpath + ".manifest.json"):
         graphs, invalid = load_graph_cache_sharded(cpath)

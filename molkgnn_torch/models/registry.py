@@ -4,7 +4,8 @@ Port of ``molkgnn_tpu/models/registry.py``. Each entry gives the encoder
 class (with the reference's default hyperparameters), the batch-spec
 builder (the point families' with their cutoff), the host collate of its
 batch family, and the encoder attribute holding the graph-embedding width,
-which sizes ``GNNModel``'s head. ChIRoNet is not ported yet (ROADMAP A11).
+which sizes ``GNNModel``'s head (ChIRoNet's ``out_dim`` follows its output
+mode; the JAX package's head infers its width and names ``f_h``).
 """
 
 from __future__ import annotations
@@ -65,9 +66,11 @@ def _spherenet() -> ModelFamily:
 
 
 def _chironet() -> ModelFamily:
-    raise NotImplementedError(
-        "gnn_type 'chironet' is not ported to molkgnn_torch yet "
-        "(ROADMAP A11)")
+    from molkgnn_torch.graphs.chiro import batch_chiro, chiro_spec_for_graphs
+    from molkgnn_torch.models.chironet import ChIRoNet
+
+    return ModelFamily("chironet", ChIRoNet, chiro_spec_for_graphs,
+                       batch_chiro, "out_dim")
 
 
 _FACTORIES: Dict[str, Callable[[], ModelFamily]] = {
@@ -90,7 +93,7 @@ def get_family(gnn_type: str) -> ModelFamily:
 def embedding_width(encoder) -> int:
     """The graph-embedding width of ``encoder``, from its family's
     ``out_dim_field``."""
-    for name in GNN_TYPES[:-1]:  # every family but chironet (not ported)
+    for name in GNN_TYPES:
         family = get_family(name)
         if isinstance(encoder, family.make_encoder):
             return getattr(encoder, family.out_dim_field)

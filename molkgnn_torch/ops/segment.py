@@ -78,3 +78,17 @@ def segment_min(
     out = values.new_full((num_segments,), float("inf"))
     return out.scatter_reduce(0, segment_ids.long(), values, "amin",
                               include_self=False)
+
+
+def segment_max(
+    values: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
+) -> torch.Tensor:
+    """Greatest of ``values`` [N, ...] per segment along dim 0
+    (``jax.ops.segment_max``); a segment with no entry holds ``-inf``.
+    Padded entries should carry ``-inf``. A maximum is exact, so the
+    result does not depend on the order in which entries arrive."""
+    out = values.new_full((num_segments,) + values.shape[1:],
+                          float("-inf"))
+    idx = segment_ids.long().reshape((-1,) + (1,) * (values.dim() - 1))
+    return out.scatter_reduce(0, idx.expand_as(values), values, "amax",
+                              include_self=False)

@@ -2,10 +2,11 @@
 
 The counterpart of the JAX package's ``lax.scan`` over id blocks inside one
 ``jit`` (``Predictor.screen_library``, ``Trainer._eval_flat``): the dataset
-lives on the device (``graphs/device_pack.py``, or
-``graphs/device_points.py`` for the point families: the gather is the spec
-family's), the ids of every batch form a ``[nblocks, B]`` matrix padded
-with -1 (``pad_ids``), and the
+lives on the device (``graphs/device_pack.py``,
+``graphs/device_points.py`` for the point families or
+``graphs/device_chiro.py`` for ChIRoNet: the gather is the spec family's,
+from ``serving/predictor.py::device_pipeline``), the ids of every batch
+form a ``[nblocks, B]`` matrix padded with -1 (``pad_ids``), and the
 predictions of all blocks come back as one ``[nblocks, B]`` tensor, read
 back once by the caller. Nothing is read back between blocks.
 

@@ -1,9 +1,9 @@
 """Inference / serving path: trained weights -> batched predictor.
 
-Port of ``molkgnn_tpu/serving/predictor.py`` on one device, for the kgnn
-batch family (``BatchSpec``) and the point-cloud family of SchNet,
-DimeNet++ and SphereNet (``PointBatchSpec``), dispatched on the spec's
-type:
+Port of ``molkgnn_tpu/serving/predictor.py`` on one device, for every
+batch family, dispatched on the spec's type: kgnn (``BatchSpec``), the
+point clouds of SchNet, DimeNet++ and SphereNet (``PointBatchSpec``) and
+ChIRoNet's internal-coordinate graphs (``ChiroBatchSpec``):
 
   * ``predict_graphs``: chunked batching of any number of molecules through
     one fixed-shape ``BatchSpec`` (each chunk packed on the host, the last
@@ -14,14 +14,13 @@ type:
     is assembled there, and the slab's id blocks go through one CUDA graph
     replayed per block (``serving/blocks.py``), with one readback a slab;
   * ``predict_smiles``: SMILES in (the port's chemistry), scores out, NaN
-    where a SMILES does not parse;
+    where a SMILES does not parse (or, for ChIRoNet, has no dihedral);
   * ``export``/``load_exported``: the eval forward as a ``torch.export``
     program (the scorer kernel a registered op in it) with the spec and
     its family; loading needs no model code.
 
-The ChIRoNet batch family (``ChiroBatchSpec``) is not ported yet (ROADMAP
-A11): a spec of another family raises. Data-parallel screening (``mesh=``)
-is ROADMAP A12.
+A spec of another type raises. Data-parallel screening (``mesh=``) is
+ROADMAP A12.
 
 On the card, float32 products run in full float32: TF32 is switched off
 for matrix products and cuDNN, because the permutation argmax of the score
@@ -41,6 +40,7 @@ import torch
 from torch import nn
 
 from molkgnn_torch.graphs.batch import BatchSpec, GraphBatch
+from molkgnn_torch.graphs.chiro import ChiroBatch, ChiroBatchSpec
 from molkgnn_torch.graphs.geometric import PointBatch, PointBatchSpec
 from molkgnn_torch.graphs.molgraph import MolGraph
 from molkgnn_torch.training.metrics import sigmoid
@@ -51,7 +51,8 @@ from molkgnn_torch.training.metrics import sigmoid
 SPEC_FILE = "molkgnn_spec.json"
 # Batch family name -> (spec type, batch type).
 FAMILIES = {"kgnn": (BatchSpec, GraphBatch),
-            "point": (PointBatchSpec, PointBatch)}
+            "point": (PointBatchSpec, PointBatch),
+            "chiro": (ChiroBatchSpec, ChiroBatch)}
 
 
 def resolve_device(device: Optional[str | torch.device]) -> torch.device:
@@ -67,14 +68,14 @@ def resolve_device(device: Optional[str | torch.device]) -> torch.device:
 
 
 def spec_family(spec) -> str:
-    """The batch family of ``spec`` ("kgnn" or "point"); another family
-    raises (ROADMAP A11)."""
+    """The batch family of ``spec`` ("kgnn", "point" or "chiro"); a spec of
+    another type raises."""
     for name, (spec_type, _) in FAMILIES.items():
         if isinstance(spec, spec_type):
             return name
     raise NotImplementedError(
-        f"the {type(spec).__name__} batch family is not ported to "
-        "molkgnn_torch yet (ROADMAP A11); BatchSpec and PointBatchSpec are"
+        f"{type(spec).__name__} is not a batch spec of molkgnn_torch; "
+        "BatchSpec, PointBatchSpec and ChiroBatchSpec are"
     )
 
 
@@ -82,10 +83,17 @@ def host_pipeline_for_spec(spec):
     """(mol -> graph featurizer, collate) for a spec's batch family: the
     point families read the kgnn featurisation's atomic numbers and
     positions (``mol_to_graph``) and pack with ``batch_points``; kgnn packs
-    with ``batch_graphs``."""
+    with ``batch_graphs``; ChIRoNet featurizes with ``mol_to_chiro_graph``
+    (None for a molecule with no dihedral) and packs with
+    ``batch_chiro``."""
     from molkgnn_torch.chem.features import mol_to_graph
 
-    if spec_family(spec) == "point":
+    family = spec_family(spec)
+    if family == "chiro":
+        from molkgnn_torch.graphs.chiro import batch_chiro, mol_to_chiro_graph
+
+        return mol_to_chiro_graph, batch_chiro
+    if family == "point":
         from molkgnn_torch.graphs.geometric import batch_points
 
         return mol_to_graph, batch_points
@@ -97,8 +105,16 @@ def host_pipeline_for_spec(spec):
 def device_pipeline(spec):
     """(build(graphs, device) -> device dataset, gather(data, ids, spec) ->
     batch) for a spec's batch family: ``device_points`` for the point
-    families, ``device_pack`` for kgnn."""
-    if spec_family(spec) == "point":
+    families, ``device_chiro`` for ChIRoNet, ``device_pack`` for kgnn."""
+    family = spec_family(spec)
+    if family == "chiro":
+        from molkgnn_torch.graphs.device_chiro import (
+            DeviceChiroDataset,
+            gather_chiro,
+        )
+
+        return DeviceChiroDataset.from_graphs, gather_chiro
+    if family == "point":
         from molkgnn_torch.graphs.device_points import (
             DevicePointDataset,
             gather_points,
@@ -207,7 +223,13 @@ class Predictor:
         names: the host-side overflow check that the device gather cannot
         make (it truncates silently)."""
         spec = self.spec
-        if spec_family(spec) == "point":
+        family = spec_family(spec)
+        if family == "chiro":
+            from molkgnn_torch.graphs.chiro import COUNT_NAMES
+
+            rows = [g.counts() for g in graphs]
+            caps, names = spec.capacities(), COUNT_NAMES
+        elif family == "point":
             from molkgnn_torch.graphs.geometric import molecule_geometry
 
             rows = []
@@ -243,7 +265,8 @@ class Predictor:
 
         Each slab of ``slab`` molecules is flat-packed on the host once
         and copied to the device (``device_pipeline``: ``DeviceDataset``,
-        or ``DevicePointDataset`` with the molecules' geometry);
+        ``DevicePointDataset`` with the molecules' geometry, or
+        ``DeviceChiroDataset``);
         every padded batch is assembled there and the slab's id blocks are
         scored by one CUDA graph replayed per block on the card (eager
         forwards on the CPU), with one readback a slab. Every batch is
@@ -292,7 +315,7 @@ class Predictor:
                     f"({'; '.join(over)}) — the library contains molecules "
                     "larger than the spec was built for; rebuild the spec "
                     "over the library (spec_for_graphs, "
-                    "point_spec_for_graphs)"
+                    "point_spec_for_graphs, chiro_spec_for_graphs)"
                 )
             t1 = time.perf_counter()
             data = build(chunk, self.device)
@@ -317,17 +340,22 @@ class Predictor:
         extra files: an artifact that ``load_exported`` serves without the
         model code. Returns the ``ExportedProgram``.
 
-        The program takes the batch's leaves (``GraphBatch.leaves`` or
-        ``PointBatch.leaves``, the JAX package's tree order) at the spec's
-        shapes and returns
+        The program takes the batch's leaves (``GraphBatch.leaves``,
+        ``PointBatch.leaves`` or ``ChiroBatch.leaves``, the JAX package's
+        tree order) at the spec's shapes and returns
         (prediction [B], graph embedding [B, H]). It is traced on this
         Predictor's device, whose tensors it keeps (parameters, and the
         devices of tensors the forward creates), so it serves on that
         device type only. With ``use_kernel=True`` the scorer is one
         ``molkgnn.support_score`` node a layer."""
         family = spec_family(self.spec)
-        leaves = self.collate([_two_atoms(self.spec)], self.spec).to(
-            self.device).leaves()
+        if family == "chiro":
+            from molkgnn_torch.graphs.chiro import template_graph
+
+            example = template_graph()
+        else:
+            example = _two_atoms(self.spec)
+        leaves = self.collate([example], self.spec).to(self.device).leaves()
         with torch.no_grad():
             program = torch.export.export(
                 _LeafForward(self.model, FAMILIES[family][1]), tuple(leaves))
@@ -358,8 +386,9 @@ class Predictor:
                 f"only (export it again on {device.type})"
             )
         fields = meta["spec"]
-        if meta.get("family", "kgnn") == "point":
-            spec = PointBatchSpec(**fields)
+        family = meta.get("family", "kgnn")
+        if family in ("point", "chiro"):
+            spec = FAMILIES[family][0](**fields)
         else:
             spec = BatchSpec(**{**fields,
                                 "deg_capacity": tuple(fields["deg_capacity"])})
@@ -378,13 +407,16 @@ class Predictor:
         probabilities: bool = False,
         embed_seed: int = 42,
     ) -> np.ndarray:
-        """SMILES -> scores; unparseable molecules get NaN (positions are
-        preserved)."""
-        from molkgnn_torch.chem.embed import smiles_to_graph
+        """SMILES -> scores; unparseable molecules (for ChIRoNet, also
+        those with no dihedral) get NaN (positions are preserved)."""
+        if spec_family(self.spec) == "chiro":
+            from molkgnn_torch.graphs.chiro import (
+                smiles_to_chiro_graph as to_graph,
+            )
+        else:
+            from molkgnn_torch.chem.embed import smiles_to_graph as to_graph
 
-        graphs: List[Optional[MolGraph]] = [
-            smiles_to_graph(s, seed=embed_seed) for s in smiles
-        ]
+        graphs = [to_graph(s, seed=embed_seed) for s in smiles]
         valid = [g for g in graphs if g is not None]
         scores = (
             self.predict_graphs(valid, probabilities=probabilities)

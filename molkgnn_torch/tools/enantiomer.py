@@ -11,14 +11,18 @@ with oversampling, ``--device_sampling --scan_steps 16`` and warmup 300:
 kgnn 1 layer (hidden 32, no dropout, peak learning rate 1e-2, 20 epochs);
 SchNet 3 layers, hidden 32 (6 epochs) and DimeNet++ 2 blocks, hidden 32 (6
 epochs), the two mirror-invariant null controls; SphereNet 2 layers, hidden
-32 (12 epochs), whose torsion sees handedness. Prints one JSON line: the
-record counts, the ingest time, the CLI's time, the learning curve and the
-test metrics beside the JAX-CPU record
-(``benchmarks/quality_run/enantiomer{,_schnet,_dimenet_pp,_spherenet}/
-test_result.log``, ``[last]``; random floor 0.0215).
+32 (12 epochs), whose torsion sees handedness; ChIRoNet F_H 32, 2 GAT heads
+(6 epochs), whose R/S node tags and torsion phases see it. Prints one JSON
+line: the record counts, the ingest time, the CLI's time, the learning
+curve and the test metrics beside the JAX-CPU record
+(``benchmarks/quality_run/enantiomer{,_schnet,_dimenet_pp,_spherenet,
+_chironet}/test_result.log``, ``[last]``; random floor 0.0215). One of the
+8 scaffolds, FC(Cl)Br, has no dihedral: ChIRoNet's ingest drops its
+records, as the JAX package's does.
 
     python -m molkgnn_torch.tools.enantiomer                 # on the card
     python -m molkgnn_torch.tools.enantiomer --gnn_type spherenet
+    python -m molkgnn_torch.tools.enantiomer --gnn_type chironet
     python -m molkgnn_torch.tools.enantiomer --inactives 6000 --device cpu
 """
 
@@ -39,8 +43,9 @@ N_ACTIVE, N_INACTIVE = 187, 61645
 CHIRAL_SMILES = ["FC(Cl)Br", "CC(F)Cl", "CC(N)O", "NC(F)Cl",
                  "CC(O)F", "OC(F)Cl", "CC(Br)Cl", "CC(N)F"]
 # The enantiomer configurations of benchmarks/quality_run.py (ENANT_ARGS,
-# SCHNET_ARGS, DIMENET_ARGS, SPHERENET_ARGS), their epochs (TASKS) and the
-# JAX-CPU records ([last] of each task's test_result.log), by gnn_type.
+# SCHNET_ARGS, DIMENET_ARGS, SPHERENET_ARGS, CHIRONET_ARGS), their epochs
+# (TASKS) and the JAX-CPU records ([last] of each task's test_result.log),
+# by gnn_type.
 CONFIGS = {
     "kgnn": ([
         "--num_layers", "1", "--hidden_dim", "32", "--dropout_ratio", "0",
@@ -68,6 +73,10 @@ CONFIGS = {
         "1", "--num_after_skip", "1", "--num_output_layers", "1",
         "--ffn_dropout_rate", "0.0", "--peak_lr", "2e-3",
     ], 12, {"logAUC_0.001_0.1": 0.2250, "AUC": 0.6422}),
+    "chironet": ([
+        "--F_H", "32", "--F_H_EConv", "32", "--GAT_N_heads", "2",
+        "--dropout", "0.0", "--ffn_dropout_rate", "0.0", "--peak_lr", "1e-3",
+    ], 6, {"logAUC_0.001_0.1": 0.2296, "AUC": 0.9030}),
 }
 # The kgnn configuration (chip_smoke.py phase 6 runs it).
 ENANTIOMER_ARGS = CONFIGS["kgnn"][0] + ["--warmup_iterations", "300"]
@@ -189,7 +198,7 @@ def run(workdir: str, n_inactive: int = N_INACTIVE,
     write_enantiomer_sdfs(os.path.join(root, "raw"), N_ACTIVE, n_inactive)
     write_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    ds = load_qsar_dataset(root, "1798")
+    ds = load_qsar_dataset(root, "1798", gnn_type=gnn_type)
     ingest_s = time.perf_counter() - t0
     result = cli_run(dataset_path, os.path.join(workdir, "run"), gnn_type,
                      epochs, device)

@@ -14,11 +14,12 @@ found, every shape equal, no key left over but the reference's dead ones.
 
 ``from_jax_variables`` takes a ``GNNModel`` variable tree of the JAX
 package (``{'params': ..., 'batch_stats': ...}``, leaves as numpy arrays)
-for kgnn, SchNet, DimeNet++ or SphereNet and returns the port's
-``state_dict``, whose keys are those of the reference PyTorch Lightning
-checkpoint. It is the inverse of the key maps in
+for any of the five families and returns the port's ``state_dict``, whose
+keys are those of the reference PyTorch Lightning checkpoint. It is the
+inverse of the key maps in
 ``molkgnn_tpu/training/checkpoint.py::from_torch_state_dict``
-(``_enc_key``, ``_schnet_key``, ``_dimenet_key``, ``_spherenet_key``):
+(``_enc_key``, ``_schnet_key``, ``_dimenet_key``, ``_spherenet_key``,
+``_chiro_key``):
 
   * linear layers: the JAX kernel [in, out] becomes weight [out, in];
   * embeddings ([num, H]) and the radial frequencies pass through;
@@ -31,7 +32,14 @@ checkpoint. It is the inverse of the key maps in
     ``update_es.{l}.mlp.0``, ``output{b}`` to ``output_blocks.{b}``,
     ``interaction{b}/before_skip{k}`` to
     ``interaction_blocks.{b}.layers_before_skip.{k}``, ``lin{k}`` of an
-    output block to ``lins.{k}``, and so on.
+    output block to ``lins.{k}``, and so on;
+  * ChIRoNet's under ``gnn_model.encoder``: ``EConv``/``ChiralEConv``
+    (``nn/lin{k}`` to ``nn.linear_layers.{k}``, the root weight ``root``
+    to ``lin.weight``, transposed), ``GAT{g}``/``ChiralGAT{g}`` to
+    ``Graph_Embedder.GAT_layers.{g}``/``ChiralMessagePassingEncoder.
+    ChiralGATLayers.{g}`` (``lin`` transposed; ``att_src``, ``att_dst``,
+    ``bias`` as they are), and ``InternalCoordinateEncoder/{MLP}/lin{k}``
+    to ``InternalCoordinateEncoder.{MLP}.linear_layers.{k}``.
 """
 
 from __future__ import annotations
@@ -267,16 +275,57 @@ def _spherenet_key(rest):
     raise KeyError(f"no port key for SphereNet path {rest}")
 
 
+def _chiro_key(rest):
+    base = "gnn_model.encoder"
+    name, sub = rest[0], rest[1:]
+
+    def mlp(mod, lin, leaf):
+        k = int(lin[len("lin"):])
+        key, transpose = _leaf((leaf,))
+        return f"{mod}.linear_layers.{k}.{key}", transpose
+
+    def nnconv(mod):
+        if sub[0] == "nn":
+            return mlp(f"{mod}.nn", sub[1], sub[2])
+        if sub[0] == "root":
+            return f"{mod}.lin.weight", True
+        if sub[0] == "bias":
+            return f"{mod}.bias", False
+        raise KeyError(f"no port key for NNConv path {rest}")
+
+    def gat(mod):
+        if sub[0] == "lin":
+            return f"{mod}.lin.weight", True
+        if sub[0] in ("att_src", "att_dst", "bias"):
+            return f"{mod}.{sub[0]}", False
+        raise KeyError(f"no port key for GAT path {rest}")
+
+    cmp = f"{base}.ChiralMessagePassingEncoder"
+    if name == "EConv":
+        return nnconv(f"{base}.Graph_Embedder.EConv")
+    if name == "ChiralEConv":
+        return nnconv(f"{cmp}.ChiralEConv")
+    if name.startswith("ChiralGAT"):
+        return gat(f"{cmp}.ChiralGATLayers.{int(name[len('ChiralGAT'):])}")
+    if name.startswith("GAT"):
+        return gat(f"{base}.Graph_Embedder.GAT_layers."
+                   f"{int(name[len('GAT'):])}")
+    if name == "InternalCoordinateEncoder":
+        return mlp(f"{base}.InternalCoordinateEncoder.{sub[0]}", sub[1],
+                   sub[2])
+    raise KeyError(f"no port key for ChIRoNet path {rest}")
+
+
 def _target_key_fn(variables: Any):
     """(collection, path) -> (port key, transpose) for the tree's encoder
     family, told apart by its structure as the JAX importer tells them:
-    kgnn owns the BatchNorms, DimeNet++ the emb_lin pair, SphereNet the
-    init_e block, SchNet a flat init_v table."""
+    kgnn owns the BatchNorms, ChIRoNet the EConv, DimeNet++ the emb_lin
+    pair, SphereNet the init_e block, SchNet a flat init_v table."""
     enc = variables.get("params", {}).get("encoder", {})
     if "node_batch_norm" in enc:
         return _kgnn_key
-    for marker, fn in (("emb_lin", _dimenet_key), ("init_e", _spherenet_key),
-                       ("init_v", _schnet_key)):
+    for marker, fn in (("EConv", _chiro_key), ("emb_lin", _dimenet_key),
+                       ("init_e", _spherenet_key), ("init_v", _schnet_key)):
         if marker in enc:
             def key(collection, path, fn=fn):
                 if path[0] == "encoder":
@@ -288,8 +337,8 @@ def _target_key_fn(variables: Any):
 
 
 def from_jax_variables(variables: Any) -> Dict[str, torch.Tensor]:
-    """The port's ``state_dict`` for a JAX ``GNNModel`` tree of any ported
-    family (kgnn, SchNet, DimeNet++, SphereNet).
+    """The port's ``state_dict`` for a JAX ``GNNModel`` tree of any of the
+    five families (kgnn, SchNet, DimeNet++, SphereNet, ChIRoNet).
 
     Load the result with ``model.load_state_dict(sd, strict=True)``.
     Raises KeyError for a leaf with no counterpart in the port (e.g. fixed

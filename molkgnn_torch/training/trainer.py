@@ -12,7 +12,8 @@ Port of ``molkgnn_tpu/training/trainer.py`` (its single-device paths):
     the default): the host draws the epoch's oversampled graph ids and the
     batch is assembled on the device (``graphs/device_pack.py`` for kgnn's
     ``BatchSpec``, ``graphs/device_points.py`` for the point families'
-    ``PointBatchSpec``: ``serving/predictor.py::device_pipeline``); with
+    ``PointBatchSpec``, ``graphs/device_chiro.py`` for ChIRoNet's
+    ``ChiroBatchSpec``: ``serving/predictor.py::device_pipeline``); with
     ``device_sampling`` the ids are drawn on the device too, from an alias
     table and a generator of their own, ``ceil(n_train / B)`` full batches
     an epoch; or from the host loader (``GraphLoader``, with the family's
@@ -228,7 +229,7 @@ class Trainer:
         # The spec's batch family: the host loader's collate (None: kgnn's
         # flat-packed loader) and the device dataset and gather.
         self._collate = (host_pipeline_for_spec(spec)[1]
-                         if spec_family(spec) == "point" else None)
+                         if spec_family(spec) != "kgnn" else None)
         build, self._gather = device_pipeline(spec)
         self._device_data = None
         if config.use_device_data:

@@ -659,3 +659,148 @@ def test_cuda_point_screen_and_export():
     out, _ = call(batch_points(graphs[:8], spec))
     np.testing.assert_allclose(out.cpu().numpy(), want[:8], rtol=1e-5,
                                atol=1e-5)
+
+
+# --------------------------------------------------------------- ChIRoNet
+CHIRO_SMILES = ["CCO", "CC(=O)O", "c1ccccc1O", "CCN(C)C", "CC(N)C(=O)O",
+                "CCCC", "CC(F)Cl", "CC(N)F"]
+CHIRO_SMALL = dict(f_z=(4, 3, 5), f_h=8, f_h_econv=6, econv_mlp_hidden=(5,),
+                   gat_hidden=(7,), gat_heads=2, hidden_d=(6,),
+                   hidden_phi=(6,), hidden_c=(6,), hidden_shift=(10, 6),
+                   hidden_alpha=(6,), cmp_econv_hidden=(9,),
+                   cmp_gat_layers=2, cmp_gat_heads=2)
+
+
+def _chiro_setup(n=24, batch=8, seed=12, **model_kw):
+    """(ChiroGraphs of the SMILES above, embedded from seeds, labels
+    alternating; the spec at ``batch``; a small ChIRoNet GNNModel with
+    weights from a seed)."""
+    from molkgnn_torch.chem.embed import embed_molecule
+    from molkgnn_torch.chem.smiles import parse_smiles
+    from molkgnn_torch.graphs.chiro import (
+        chiro_spec_for_graphs,
+        mol_to_chiro_graph,
+    )
+    from molkgnn_torch.models.chironet import ChIRoNet
+    from molkgnn_torch.training.model import GNNModel
+
+    graphs = []
+    for k in range(n):
+        mol = parse_smiles(CHIRO_SMILES[k % len(CHIRO_SMILES)], add_hs=True)
+        pos = embed_molecule(mol, seed=seed + k, iterations=40)
+        for a, p in zip(mol.atoms, pos):
+            a.x, a.y, a.z = map(float, p)
+        graphs.append(mol_to_chiro_graph(mol, y=float(k % 2), idx=k))
+    spec = chiro_spec_for_graphs(graphs, batch)
+    gen = torch.Generator().manual_seed(seed)
+    model = GNNModel(ChIRoNet(generator=gen, **CHIRO_SMALL, **model_kw),
+                     ffn_dropout_rate=0.0, generator=gen)
+    return graphs, spec, model
+
+
+@pytest.mark.cuda
+def test_cuda_gather_chiro_matches_batch_chiro():
+    """The on-card ChIRoNet gather equals the host packer bit for bit."""
+    _needs_card()
+    from molkgnn_torch.graphs.chiro import batch_chiro
+    from molkgnn_torch.graphs.device_chiro import (
+        DeviceChiroDataset,
+        gather_chiro,
+    )
+    from molkgnn_torch.graphs.device_pack import pad_ids
+
+    graphs, spec, _ = _chiro_setup()
+    data = DeviceChiroDataset.from_graphs(graphs, "cuda")
+    for ids in ([0, 1, 2, 3, 4, 5, 6, 7], [20, 3, 9], []):
+        idv = torch.as_tensor(pad_ids(np.asarray(ids, np.int32), 8),
+                              device="cuda")
+        got = gather_chiro(data, idv, spec)
+        want = batch_chiro([graphs[i] for i in ids], spec)
+        for a, b in zip(got.leaves(), want.leaves()):
+            assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("options", [
+    {}, dict(chiral_message_passing=True, c_normalization="softmax",
+             output_mode="both", reduction="mean"),
+])
+def test_cuda_chiro_forward_fp64_matches_cpu(options):
+    """ChIRoNet's forward in float64 on the card against the CPU, same
+    weights and batch: within 1e-9 relative to the largest value."""
+    _needs_card()
+    import dataclasses
+
+    from molkgnn_torch.graphs.chiro import batch_chiro
+
+    graphs, spec, model = _chiro_setup(**options)
+    batch = batch_chiro(graphs[:6], spec)
+    batch = dataclasses.replace(batch, **{
+        f: getattr(batch, f).double()
+        for f in ("x", "edge_attr", "distances", "angles", "dihedrals",
+                  "y")})
+    model = model.double().eval()
+    with torch.no_grad():
+        want = model(batch)
+        got = model.cuda()(batch.to("cuda"))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float64
+        scale = max(1.0, float(w.abs().max()))
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-9,
+                                   atol=1e-9 * scale)
+
+
+@pytest.mark.cuda
+def test_cuda_chiro_graphed_steps_equal_eager(tmp_path):
+    """2 epochs with device sampling, eager against scan_steps=4 (a
+    captured step replayed): the first 3 losses within 1e-5 relative, all
+    finite; no scorer launch."""
+    _needs_card()
+    from molkgnn_torch.data.dataset import QSAR_METRICS, Dataset, _split
+    from molkgnn_torch.training.trainer import TrainConfig, Trainer
+
+    graphs, spec, model = _chiro_setup(n=80, batch=8)
+    dataset = Dataset("chiro", graphs, _split(np.random.default_rng(0), 80),
+                      list(QSAR_METRICS), "bce_with_logits")
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    runs = {}
+    before = (ss.grouped_support_score.launches,
+              ss.fused_support_score.launches)
+    for k in (1, 4):
+        model.load_state_dict(sd)
+        trainer = Trainer(model, dataset, spec, TrainConfig(
+            batch_size=8, max_epochs=2, scan_steps=k, oversample=True,
+            device_sampling=True, warmup_iterations=4, progress=False,
+            log_dir=str(tmp_path / str(k))))
+        trainer.fit()
+        runs[k] = trainer.step_losses
+    assert len(runs[1]) == len(runs[4]) == 16
+    assert np.isfinite(runs[1]).all() and np.isfinite(runs[4]).all()
+    np.testing.assert_allclose(runs[4][:3], runs[1][:3], rtol=1e-5)
+    assert (ss.grouped_support_score.launches,
+            ss.fused_support_score.launches) == before
+
+
+@pytest.mark.cuda
+def test_cuda_chiro_screen_and_export():
+    """ChIRoNet on the card: screen_library (captured blocks) equals
+    predict_graphs, and the exported program loads and scores the same."""
+    _needs_card()
+    import tempfile
+
+    from molkgnn_torch.graphs.chiro import ChiroBatchSpec, batch_chiro
+    from molkgnn_torch.serving.predictor import Predictor
+
+    graphs, spec, model = _chiro_setup(n=40, chiral_message_passing=True)
+    pred = Predictor(model, model.state_dict(), spec)
+    want = pred.predict_graphs(graphs)
+    got = pred.screen_library(graphs, slab=24)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = tmp + "/chironet.pt2"
+        pred.export(path)
+        call, got_spec = Predictor.load_exported(path)
+    assert isinstance(got_spec, ChiroBatchSpec) and got_spec == spec
+    out, _ = call(batch_chiro(graphs[:8], spec))
+    np.testing.assert_allclose(out.cpu().numpy(), want[:8], rtol=1e-5,
+                               atol=1e-5)

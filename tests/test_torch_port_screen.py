@@ -135,19 +135,21 @@ def _refusal(case, setup):
     if case == "mesh":
         return NotImplementedError, "A12", lambda: _port(
             v, spec).screen_library(graphs, mesh=object())
+    # The JAX package's ChiroBatchSpec is not a spec of the port.
     chiro = ChiroBatchSpec(num_graphs=8, num_nodes=64, num_edges=256,
                            num_dist=64, num_angles=64, num_dihedrals=64,
                            num_alpha=64)
-    return NotImplementedError, "A11", lambda: _port(v, chiro)
+    return NotImplementedError, "not a batch spec", lambda: _port(v, chiro)
 
 
 # "point_spec" keeps its name from when the point family was the unported
-# one; it now holds the ChIRoNet spec, the family still unported.
+# one; it now holds a spec type the port does not register.
 @pytest.mark.parametrize("case", ["overflow", "mesh", "point_spec"])
 def test_screen_library_refusals(setup, case):
     """An overflowing batch raises before any scoring (the device gather
-    would truncate it); data-parallel screening and the ChIRoNet batch
-    family are not ported and say which ROADMAP item holds them."""
+    would truncate it); data-parallel screening is not ported and says
+    which ROADMAP item holds it; a spec of a type the port does not
+    register raises."""
     err, match, call = _refusal(case, setup)
     with pytest.raises(err, match=match):
         call()

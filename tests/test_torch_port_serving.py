@@ -139,6 +139,10 @@ import molkgnn_torch.models.schnet
 import molkgnn_torch.models.dimenetpp
 import molkgnn_torch.models.spherenet
 import molkgnn_torch.models.registry
+import molkgnn_torch.chem.chiro_features
+import molkgnn_torch.graphs.chiro
+import molkgnn_torch.graphs.device_chiro
+import molkgnn_torch.models.chironet
 import molkgnn_torch.tools.enantiomer
 import chip_smoke
 loaded = sorted(m for m in sys.modules if banned(m))
