@@ -138,6 +138,33 @@ Phases, in order; any failure exits non-zero and prints no result line:
               Predictor (records with no dihedral empty); (i) the
               enantiomer configuration through the CLI at 6,000 inactives,
               beside the JAX-CPU record.
+ 10. side:    (a) balanced batches: the flagship on phase 5's 8192
+              molecules at batch 1024 under spec_for_dataset's tight spec
+              (capacities and mean occupancy of each padded field against
+              the cover spec); Trainer.fit with balanced_batches for 2
+              epochs, eager against replayed (scan_steps=16) from the same
+              weights, the first 3 losses within 1e-5 relative, the
+              replayed fit counted (4 launches a step and an evaluation
+              batch); train graphs/s and peak memory, balanced against
+              cover, replayed, ABBA; on tie-free molecules balanced and
+              cover evaluation of the same weights within 1e-4; with
+              device_sampling it raises. (b) Fixed kernel sets (4/6/8/10
+              for degrees 1-4, seeded) written to and read from a
+              customized_kernels/ directory: the layer-0 launch of 8
+              groups at batch-1024 shapes against the plain version, timed
+              beside its bound, the library yardstick and the same layer's
+              4 trainable groups; 3 optimizer steps and an evaluation,
+              counted: the fixed tensors bit-equal, the score weights
+              moved; capture_layer0_scores on the card within 1e-4 of the
+              CPU on tie-free molecules. (c) The CLI with
+              --balanced_batches --scan_steps 16 on phase 6's SDF pair at
+              batch 32 for 1 epoch: artifacts, finite metrics, launches =
+              4 x (steps + evaluation batches); with --device_sampling it
+              is refused. (d) profiler_trace around two replayed steps
+              writes a trace holding the scorer; a 2-point sweep (1 epoch,
+              synthetic_motif) through molkgnn_torch.cli.entry
+              subprocesses on the card, aggregated (2 rows), then resumed
+              (both skipped).
 
 The last lines are the records of the phases' numbers, the kernel record
 ({"kernels": [...]}), the card's name and power limit, and
@@ -199,6 +226,8 @@ INACTIVE_SMILES = [
     "CCCC(=O)O", "CCOC(=O)C", "CCCCCCCC", "CC1CCCCC1", "OCC(O)CO",
 ]
 CHIRO_SEEDS = 8
+# Phase 10(b): fixed (designed) kernels per degree at layer 0.
+FIXED_KERNELS = (4, 6, 8, 10)
 # Phase 9(d)'s second model: chiral message passing with softmax c.
 CHIRO_CMP = {"chiral_message_passing": True, "c_normalization": "softmax"}
 # The CLI epoch's evaluation at AID 1798's full counts while it ran eager,
@@ -273,6 +302,35 @@ def device_ms(torch, fn, reps: int = 20):
     return total_us / 1e3 / reps if total_us > 0 else None
 
 
+def graph_ms(torch, fn, n: int = 50) -> float:
+    """Device time of one call of ``fn`` by CUDA events around one replay
+    of a CUDA graph that captured ``n`` calls: the launches run back to
+    back with no host dispatch between them. (Late in this script's
+    process torch.profiler was seen to report a third of a short kernel's
+    time, below its bound, where this measure agreed with the profiler's
+    reading in a fresh process, so phase 10 reports both.)"""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
 def device_rows(prof):
     """(self device ms, count, name) of each kernel in a profile; user
     annotations (e.g. ``Optimizer.step#AdamW.step``) are spans over
@@ -314,10 +372,12 @@ class Smoke:
     def __init__(self, torch):
         self.torch = torch
 
-    def flagship(self, num_layers, use_kernel, seed=SEED, dropout=None):
+    def flagship(self, num_layers, use_kernel, seed=SEED, dropout=None,
+                 **options):
         """The flagship GNNModel(MolKGNNNet) with random weights from
         ``seed``; ``dropout`` sets both dropout rates (default: the model's
-        defaults, 0 in the encoder and 0.25 before the head)."""
+        defaults, 0 in the encoder and 0.25 before the head); ``options``
+        go to MolKGNNNet (fixed_kernels, sow_scores)."""
         from molkgnn_torch.models.kgnn import MolKGNNNet
         from molkgnn_torch.training.model import GNNModel
 
@@ -325,7 +385,7 @@ class Smoke:
         rates = {} if dropout is None else {"drop_ratio": dropout}
         head = {} if dropout is None else {"ffn_dropout_rate": dropout}
         enc = MolKGNNNet(num_layers=num_layers, use_kernel=use_kernel,
-                         generator=gen, **rates)
+                         generator=gen, **rates, **options)
         return GNNModel(enc, generator=gen, **head)
 
     # ------------------------------------------------------------ phase 3
@@ -2270,6 +2330,489 @@ class Smoke:
                 "train_loss": r["train_loss"], "jax_cpu_record": rec,
                 "cli_s": r["cli_s"]}
 
+    # ------------------------------------------------------------ phase 10
+    def phase_side(self, tmp):
+        """Balanced batches, fixed kernel sets with score capture, the CLI's
+        --balanced_batches, the profiler region and a sweep (see the
+        module doc). Each main path counts the scorer's launches from 0."""
+        t_phase = time.perf_counter()
+        self.side_record, self.side_launches = {}, {}
+        self.balanced_batches(tmp)
+        self.fixed_kernel_sets(tmp)
+        self.balanced_cli(tmp)
+        self.monitors_and_sweep(tmp)
+        secs = time.perf_counter() - t_phase
+        self.side_record["seconds"] = secs
+        log(f"  phase 10 took {secs:.1f} s")
+
+    def balanced_batches(self, tmp):
+        """(a) of phase 10, on phase 5's 8192 molecules at batch 1024."""
+        import numpy as np
+
+        from molkgnn_torch.data.dataset import (
+            make_tie_free_dataset,
+            oversampling_weights,
+        )
+        from molkgnn_torch.graphs.balance import (
+            FIELD_NAMES,
+            SIZE_FIELD,
+            batch_field_sums,
+            caps_vector,
+            count_matrix,
+            deal_by_size,
+            spec_for_dataset,
+        )
+        from molkgnn_torch.graphs.batch import spec_for_graphs
+        from molkgnn_torch.graphs.device_pack import pad_ids
+        from molkgnn_torch.training.trainer import TrainConfig, Trainer
+
+        torch = self.torch
+        ds, cover = self.train_data
+        t0 = time.perf_counter()
+        tight = spec_for_dataset(ds, BATCH)
+        spec_s = time.perf_counter() - t0
+        counts = count_matrix(ds.graphs)
+        # One oversampled draw of the train split, dealt (tight spec) and
+        # taken in draw order (cover spec): mean occupancy of each padded
+        # field over the epoch's batches, the last (partial) one included.
+        train = np.asarray(ds.split["train"])
+        w = oversampling_weights(np.array([ds.graphs[i].y for i in train]))
+        draw = train[np.random.default_rng(SEED).choice(
+            len(train), size=len(train), p=w / w.sum())]
+        dealt, _ = deal_by_size(draw, counts[draw, SIZE_FIELD], BATCH)
+        seq = np.stack([pad_ids(draw[s:s + BATCH], BATCH)
+                        for s in range(0, len(draw), BATCH)])
+        occupancy = {
+            "balanced": (batch_field_sums(dealt, counts)
+                         / caps_vector(tight)).mean(0).tolist(),
+            "cover": (batch_field_sums(seq, counts)
+                      / caps_vector(cover)).mean(0).tolist(),
+        }
+        caps = {"balanced": caps_vector(tight).tolist(),
+                "cover": caps_vector(cover).tolist()}
+        log(f"  spec_for_dataset({len(ds.graphs)} molecules, batch {BATCH})"
+            f" in {spec_s:.2f} s (host)")
+        for name in ("balanced", "cover"):
+            log(f"    {name}: capacities " + ", ".join(
+                f"{f} {c}" for f, c in zip(FIELD_NAMES, caps[name]))
+                + "; mean occupancy " + ", ".join(
+                f"{f} {o:.3f}" for f, o in zip(FIELD_NAMES, occupancy[name])))
+        record = {"spec_s": spec_s, "capacities": caps,
+                  "occupancy": occupancy}
+
+        def trainer(spec, data=ds, **kw):
+            return Trainer(self.flagship(4, True), data, spec, TrainConfig(
+                batch_size=BATCH, max_epochs=2, progress=False,
+                log_dir=os.path.join(tmp, "balanced"), **kw))
+
+        def first3(a, b):
+            a, b = np.array(a[:3]), np.array(b[:3])
+            return float(np.max(np.abs(a - b) / np.abs(b)))
+
+        # The replayed fit is the phase's main path, counted. Two eager fits
+        # from the same weights and seeds stand beside it: on these
+        # molecules (neighbours with bitwise-equal features) the argmax
+        # follows index_add_'s atomics, so eager runs differ from each other
+        # too; the 1e-5 comparison is held on tie-free molecules below.
+        replayed = trainer(tight, balanced_batches=True, scan_steps=16)
+        reset_launches()
+        t0 = time.perf_counter()
+        history = replayed.fit()
+        fit_s = time.perf_counter() - t0
+        launches = launch_counts()
+        self.side_launches["balanced"] = launches
+        if replayed._graph is None:
+            raise AssertionError("balanced scan_steps=16 captured no graph")
+        eval_batches = 2 * -(-len(ds.split["valid"]) // BATCH)
+        want = 4 * (replayed.step + eval_batches)
+        eager = [trainer(tight, balanced_batches=True) for _ in range(2)]
+        for t in eager:
+            t.fit()
+        got = replayed.step_losses
+        rel = first3(got, eager[0].step_losses)
+        rel_eager = first3(eager[1].step_losses, eager[0].step_losses)
+        log(f"  balanced fit, 2 epochs replayed (scan_steps=16) in "
+            f"{fit_s:.2f} s: {replayed.step} steps, {eval_batches} "
+            f"evaluation batches, launches {launches} (want {want} grouped,"
+            f" 0 fused); valid AUC {[round(e['AUC'], 4) for e in history]};"
+            f" first 3 losses {got[:3]}, max relative difference from an "
+            f"eager run {rel:.3e}, between two eager runs {rel_eager:.3e} "
+            f"(phase 3's molecules: argmax ties, not held)")
+        if launches != {"grouped_support_score": want,
+                        "fused_support_score": 0}:
+            raise AssertionError(f"balanced launches {launches}, want {want}")
+        if not all(np.isfinite(t.step_losses).all()
+                   for t in (replayed, *eager)):
+            raise AssertionError("a balanced loss is not finite")
+        tf = make_tie_free_dataset(NUM_MOLECULES, NUM_MOLECULES * 3 // 4,
+                                   seed=SEED)
+        tf_tight = spec_for_dataset(tf, BATCH)
+        runs = [trainer(tf_tight, tf, balanced_batches=True, **kw)
+                for kw in ({}, {"scan_steps": 16})]
+        for t in runs:
+            t.fit()
+        rel_tf = first3(runs[1].step_losses, runs[0].step_losses)
+        log(f"  {NUM_MOLECULES} tie-free molecules, balanced, 2 epochs: "
+            f"replayed first 3 losses {runs[1].step_losses[:3]} against "
+            f"eager {runs[0].step_losses[:3]}: max relative difference "
+            f"{rel_tf:.3e}")
+        if rel_tf > 1e-5 or runs[1]._graph is None:
+            raise AssertionError("balanced replayed and eager losses differ")
+        record.update(fit_s=fit_s, launches=launches, eval_batches=eval_batches,
+                      steps=replayed.step, max_rel_loss_diff=rel,
+                      max_rel_loss_diff_eager=rel_eager,
+                      tie_free_max_rel_loss_diff=rel_tf)
+
+        # Train graphs/s and device memory of the replayed form, balanced
+        # against cover: each trainer is built and runs its first epoch
+        # (eager warm-up steps, the capture, replays) in a window whose
+        # peak is read above what was allocated before it (its dataset,
+        # weights, optimizer, the step and the graph's pool); then whole
+        # epochs, ABBA.
+        forms, peaks = {}, {}
+        for name, spec, kw in (("balanced", tight,
+                                {"balanced_batches": True}),
+                               ("cover", cover, {})):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            forms[name] = trainer(spec, scan_steps=16, **kw)
+            forms[name]._epoch_steps()
+            torch.cuda.synchronize()
+            peaks[name] = torch.cuda.max_memory_allocated() - base
+        rates = {name: [] for name in forms}
+        for name in ("balanced", "cover", "cover", "balanced"):
+            t = forms[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t._epoch_steps()
+            torch.cuda.synchronize()
+            rates[name].append(len(train) / (time.perf_counter() - t0))
+        # One eager step's working memory: each spec's first batch of the
+        # draw, bytes above what was allocated before the step.
+        work = {}
+        for name, spec, ids in (("balanced", tight, dealt[0]),
+                                ("cover", cover, seq[0])):
+            t = trainer(spec)
+            t._step_ids(ids)  # warm
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t._step_ids(ids)
+            torch.cuda.synchronize()
+            work[name] = torch.cuda.max_memory_allocated() - base
+            del t
+        card = torch.cuda.get_device_name(0)
+        for name in forms:
+            log(f"  {name} replayed on {card}: train "
+                f"{', '.join(f'{r:.1f}' for r in rates[name])} graphs/s "
+                f"(whole epochs, ABBA); peak {peaks[name] / 2**30:.3f} GiB "
+                f"above the baseline over the trainer's build and first "
+                f"epoch; one eager step's working memory "
+                f"{work[name] / 2**30:.3f} GiB")
+        record.update(graphs_per_s=rates, peak_bytes=peaks,
+                      step_work_bytes=work)
+
+        # Evaluation: balanced (dealt, tight spec) against cover
+        # (consecutive, cover spec), the same weights, tie-free molecules.
+        ids = np.concatenate([tf.split["valid"], tf.split["test"]])
+        preds = {}
+        for name, spec, balanced in (
+                ("balanced", tf_tight, True),
+                ("cover", spec_for_graphs(tf.graphs, BATCH), False)):
+            t = Trainer(self.flagship(4, True), tf, spec, TrainConfig(
+                batch_size=BATCH, progress=False, balanced_batches=balanced))
+            preds[name] = t._predict_ids(ids)
+        if not np.array_equal(preds["balanced"][0], preds["cover"][0]):
+            raise AssertionError("balanced evaluation labels out of order")
+        gap = float(np.abs(preds["balanced"][1] - preds["cover"][1]).max())
+        log(f"  evaluation of {len(ids)} tie-free molecules, balanced "
+            f"against cover, same weights: max |difference| {gap:.3e}")
+        if gap > 1e-4:
+            raise AssertionError("balanced and cover evaluation differ")
+        record["eval_gap"] = gap
+        self.tie_free_data = tf
+        try:
+            trainer(tight, balanced_batches=True, device_sampling=True)
+        except ValueError as e:
+            log(f"  balanced_batches with device_sampling raises: {e}")
+        else:
+            raise AssertionError("balanced_batches with device_sampling "
+                                 "did not raise")
+        self.side_record["balanced"] = record
+        self.balanced_trainer = replayed
+
+    def layer0_operands(self, model, batch):
+        """The scorer's (A, B) lists of ``model``'s layer 0 on ``batch``, as
+        its forward builds them: per degree, its fixed then trainable set,
+        sharing the degree's A."""
+        from molkgnn_torch.ops.segment import take_rows
+
+        enc = model.gnn_model
+        layer = enc.gnn.layers[0]
+        with self.torch.no_grad():
+            x = enc.node_batch_norm(batch.x, mask=batch.node_mask)
+            a_list, b_list = [], []
+            for convs, b in zip(layer.degree_convs(), batch.buckets()):
+                a = convs[0].support_a(take_rows(x, b.nei_index))
+                for conv in convs:
+                    a_list.append(a)
+                    b_list.append(conv.support_b())
+        return a_list, b_list
+
+    def fixed_kernel_sets(self, tmp):
+        """(b) of phase 10: the flagship with fixed sets at layer 0."""
+        import numpy as np
+
+        from molkgnn_torch.analyses.fixed_kernels import (
+            KERNEL_FIELDS,
+            capture_layer0_scores,
+            load_customized_kernels,
+            save_customized_kernels,
+        )
+        from molkgnn_torch.graphs.batch import batch_graphs, spec_for_graphs
+        from molkgnn_torch.ops import support_score as ss
+        from molkgnn_torch.training.trainer import TrainConfig, Trainer
+
+        torch = self.torch
+        rng = np.random.default_rng(SEED)
+        sets = [
+            {"x_center": rng.standard_normal((n, 28)),
+             "x_support": rng.standard_normal((n, d, 28)),
+             "edge_attr_support": rng.standard_normal((n, d, 7)),
+             "p_support": rng.standard_normal((n, d, 3))}
+            for d, n in enumerate(FIXED_KERNELS, 1)
+        ]
+        names = [[f"designed_deg{d}_{i}" for i in range(n)]
+                 for d, n in enumerate(FIXED_KERNELS, 1)]
+        root = os.path.join(tmp, "customized_kernels")
+        save_customized_kernels(root, sets, names)
+        fixed, got_names = load_customized_kernels(root)
+        if list(map(list, got_names)) != names or any(
+                not np.array_equal(f[k], np.float32(s[k]))
+                for f, s in zip(fixed, sets) for k in KERNEL_FIELDS):
+            raise AssertionError("customized_kernels/ did not read back")
+        log(f"  customized_kernels/: {FIXED_KERNELS} fixed kernels for "
+            f"degrees 1-4 written and read back")
+        model = self.flagship(4, True, fixed_kernels=fixed).cuda()
+        layer0 = model.gnn_model.gnn.layers[0]
+        log(f"  layer 0 block widths {layer0.block_widths()} (fixed + "
+            f"trainable); layer 1 reads "
+            f"{model.gnn_model.gnn.layers[1].trainable_kernelconv_set[0].node_dim}"
+            f" columns")
+
+        # The 8-group layer-0 launch at the flagship's batch-1024 shapes.
+        ds, cover = self.train_data
+        batch = batch_graphs(ds.graphs[:BATCH], cover).to("cuda")
+        model.eval()
+        a_list, b_list = self.layer0_operands(model, batch)
+        shapes8 = [(a.shape[0], a.shape[1], b.shape[2], b.shape[0])
+                   for a, b in zip(a_list, b_list)]
+        outs = ss.grouped_support_score(a_list, b_list)
+        err = self.check_against_plain(f"grouped fixed layer 0, 8 groups "
+                                       f"{shapes8}", outs, a_list, b_list)
+        a4, b4 = a_list[1::2], b_list[1::2]
+        shapes4 = shapes8[1::2]
+        fn8 = lambda: ss.grouped_support_score(a_list, b_list)  # noqa: E731
+        fn4 = lambda: ss.grouped_support_score(a4, b4)  # noqa: E731
+        with torch.no_grad():
+            t8 = self.time_launch(fn8, a_list, b_list)
+            t4 = self.time_launch(fn4, a4, b4)
+            # Device time by events over captured launches, in turns.
+            graph = {8: [], 4: []}
+            for g, fn in ((8, fn8), (4, fn4), (4, fn4), (8, fn8)):
+                graph[g].append(graph_ms(torch, fn))
+        self.log_times("grouped fixed layer 0, 8 groups", t8, shapes8)
+        self.log_times("the same layer's 4 trainable groups", t4, shapes4)
+        b8_ms, b8_by = bound_ms(shapes8)
+        b4_ms = bound_ms(shapes4)[0]
+        log(f"  device ms a launch by events over a captured graph of 50 "
+            f"launches (8, 4, 4, 8 groups): 8 groups {graph[8]} (bound "
+            f"{b8_ms:.4f}, share {b8_ms / min(graph[8]):.3f}), 4 groups "
+            f"{graph[4]} (bound {b4_ms:.4f}, share "
+            f"{b4_ms / min(graph[4]):.3f}); 8 over 4 "
+            f"{min(graph[8]) / min(graph[4]):.3f}")
+        record = {"shapes": shapes8, "max_abs_err": err,
+                  "ms_8": t8, "graph_ms_8": graph[8], "bound_ms_8": b8_ms,
+                  "bound_by_8": b8_by, "ms_4": t4, "graph_ms_4": graph[4],
+                  "bound_ms_4": b4_ms}
+
+        # 3 optimizer steps and an evaluation, counted: the fixed tensors
+        # stay bit-equal, the score weights move.
+        fixed_set = layer0.fixed_kernelconv_set
+        start = {(d, k): getattr(c, k).clone() for d, c in fixed_set.items()
+                 for k in KERNEL_FIELDS}
+        weights = {d: torch.stack([c.support_attr_sc_weight.detach(),
+                                   c.center_attr_sc_weight.detach(),
+                                   c.edge_attr_support_sc_weight.detach()])
+                   for d, c in fixed_set.items()}
+        trainer = Trainer(model, ds, cover, TrainConfig(
+            batch_size=BATCH, progress=False,
+            log_dir=os.path.join(tmp, "fixed")))
+        batches = [ids for ids in trainer._epoch_id_batches()][:3]
+        reset_launches()
+        losses = [float(trainer._step_ids(ids)) for ids in batches]
+        _, pred = trainer._predict_ids(ds.split["valid"])
+        launches = launch_counts()
+        self.side_launches["fixed"] = launches
+        want = 4 * (3 + -(-len(ds.split["valid"]) // BATCH))
+        moved = {d: float((torch.stack([
+            c.support_attr_sc_weight, c.center_attr_sc_weight,
+            c.edge_attr_support_sc_weight]).detach() - weights[d]).abs().max())
+            for d, c in fixed_set.items()}
+        equal = all(torch.equal(getattr(fixed_set[d], k), t)
+                    for (d, k), t in start.items())
+        log(f"  3 steps + evaluation with fixed sets: losses "
+            f"{[round(x, 6) for x in losses]}; launches {launches} (want "
+            f"{want} grouped); fixed tensors bit-equal {equal}; score "
+            f"weights moved by {moved}")
+        if launches != {"grouped_support_score": want,
+                        "fused_support_score": 0}:
+            raise AssertionError(f"fixed-kernel launches {launches}")
+        if not equal or min(moved.values()) <= 0:
+            raise AssertionError("fixed tensors moved or score weights "
+                                 "did not")
+        if not (np.isfinite(losses).all() and np.isfinite(pred).all()):
+            raise AssertionError("fixed-kernel losses or predictions")
+        record.update(losses=losses, launches=launches, score_weight_moved=
+                      moved)
+
+        # Score capture on the card against the CPU, tie-free molecules.
+        graphs = self.tie_free_data.graphs[:256]
+        small = batch_graphs(graphs, spec_for_graphs(graphs, 256))
+        got = capture_layer0_scores(model, small.to("cuda"))
+        on_cpu = self.flagship(4, False, fixed_kernels=fixed)
+        on_cpu.load_state_dict(model.state_dict())
+        want_scores = capture_layer0_scores(on_cpu, small)
+        gap = float(np.abs(got - want_scores).max())
+        log(f"  capture_layer0_scores {got.shape} on the card against the "
+            f"CPU, 256 tie-free molecules: max |difference| {gap:.3e}")
+        if gap > 1e-4 or got.shape[1] != sum(layer0.block_widths()):
+            raise AssertionError("captured scores differ from the CPU's")
+        record["capture_gap"] = gap
+        self.side_record["fixed"] = record
+        self.fixed_times = (t8, shapes8, err, t4, graph)
+
+    def balanced_cli(self, tmp):
+        """(c) of phase 10: the CLI with --balanced_batches on phase 6's SDF
+        pair, counted; with --device_sampling it is refused."""
+        import numpy as np
+
+        from molkgnn_torch.cli import entry
+        from molkgnn_torch.tools.enantiomer import parse_test_result
+
+        ds, _ = self.cli_data
+        sizes = {k: len(v) for k, v in ds.split.items()}
+        out = os.path.join(tmp, "cli_balanced")
+        common = ["--dataset_name", "1798", "--dataset_path",
+                  os.path.join(tmp, "dataset"), "--batch_size", "32",
+                  "--enable_oversampling_with_replacement",
+                  "--balanced_batches", "--max_epochs", "1"]
+        reset_launches()
+        t0 = time.perf_counter()
+        rc = entry.main(common + ["--scan_steps", "16",
+                                  "--default_root_dir", out])
+        secs = time.perf_counter() - t0
+        launches = launch_counts()
+        self.side_launches["balanced_cli"] = launches
+        if rc != 0:
+            raise AssertionError(f"the balanced CLI returned {rc}")
+        logs = os.path.join(out, "logs")
+        tested = parse_test_result(os.path.join(logs, "test_result.log"))
+        steps = -(-sizes["train"] // 32)
+        eval_batches = (-(-sizes["valid"] // 32)
+                        + (len(tested) + 1) * -(-sizes["test"] // 32))
+        want = 4 * (steps + eval_batches)
+        files = ["history.json", "test_result.log", "task_info.log",
+                 "kernels/kernels.npz", "graph_embedding.npy"] + [
+            f"test_sample_scores_{tag}.log" for tag in tested]
+        missing = [f for f in files
+                   if not os.path.exists(os.path.join(logs, f))]
+        with open(os.path.join(logs, "history.json")) as f:
+            history = json.load(f)
+        finite = all(np.isfinite(m[k]) for m in tested.values()
+                     for k in ("AUC", "logAUC_0.001_0.1", "logAUC_0.001_1"))
+        log(f"  CLI --balanced_batches --scan_steps 16, 1 epoch at batch "
+            f"32 in {secs:.1f} s: {steps} steps, {eval_batches} evaluation "
+            f"batches; launches {launches} (want {want} grouped); train "
+            f"loss {history[0]['train_loss']:.4f}; test [last] AUC "
+            f"{tested['last']['AUC']:.4f}")
+        if missing or not finite or not np.isfinite(history[0]["train_loss"]):
+            raise AssertionError(f"balanced CLI: missing {missing}, "
+                                 f"metrics {tested}")
+        if launches != {"grouped_support_score": want,
+                        "fused_support_score": 0}:
+            raise AssertionError(f"balanced CLI launches {launches}")
+        try:
+            rc = entry.main(common + ["--device_sampling", "--scan_steps",
+                                      "16", "--default_root_dir",
+                                      os.path.join(tmp, "cli_refused")])
+        except ValueError as e:
+            log(f"  CLI --balanced_batches --device_sampling refused: {e}")
+        else:
+            raise AssertionError(f"--balanced_batches --device_sampling "
+                                 f"returned {rc}")
+        self.side_record["cli"] = {"seconds": secs, "launches": launches,
+                                   "steps": steps, "test": tested}
+
+    def monitors_and_sweep(self, tmp):
+        """(d) of phase 10: a profiler region around two replayed steps,
+        and a 2-point sweep through the port's CLI in subprocesses on the
+        card, aggregated, then resumed."""
+        from molkgnn_torch.experiments.aggregate import aggregate_results
+        from molkgnn_torch.experiments.sweep import SweepConfig, run_sweep
+        from molkgnn_torch.training.monitors import profiler_trace
+
+        torch = self.torch
+        trainer = self.balanced_trainer
+        ids = torch.as_tensor(next(trainer._epoch_id_batches()),
+                              device="cuda")
+        trace_dir = os.path.join(tmp, "trace")
+        with profiler_trace(trace_dir) as prof:
+            for _ in range(2):
+                trainer._graph_step(ids)
+            torch.cuda.synchronize()
+        path = os.path.join(trace_dir, "trace.json")
+        rows = device_rows(prof)
+        scorer = [r for r in rows if KERNEL_NAME in r[2]]
+        size = os.path.getsize(path) if os.path.exists(path) else 0
+        log(f"  profiler_trace around 2 replayed steps: {path} "
+            f"({size} bytes), {len(rows)} kernels with device time, the "
+            f"scorer's {sum(r[1] for r in scorer)} launches "
+            f"{sum(r[0] for r in scorer):.3f} ms")
+        if not size or not scorer:
+            raise AssertionError("the profiler region recorded no trace or "
+                                 "no scorer kernel")
+
+        cfg = SweepConfig(
+            base_args={"dataset_name": "synthetic_motif", "max_epochs": 1},
+            grid={"peak_lr": [5e-3, 5e-2]},
+            out_dir=os.path.join(tmp, "sweep"), max_parallel=2)
+        cwd = os.getcwd()
+        os.chdir(os.path.dirname(os.path.abspath(__file__)))  # -m imports
+        try:
+            t0 = time.perf_counter()
+            records = run_sweep(cfg)
+            secs = time.perf_counter() - t0
+            again = run_sweep(cfg)
+        finally:
+            os.chdir(cwd)
+        tables = aggregate_results(cfg.out_dir)
+        statuses = [r["status"] for r in records]
+        log(f"  sweep of 2 runs of molkgnn_torch.cli.entry on the card in "
+            f"{secs:.1f} s: {statuses}; AUC table {tables.get('AUC')}; "
+            f"again: {[r['status'] for r in again]}")
+        if statuses != ["ok", "ok"]:
+            for r in records:
+                with open(os.path.join(r["dir"], "run.log")) as f:
+                    log(f.read()[-2000:])
+            raise AssertionError("a sweep run failed")
+        if len(tables["AUC"]) != 3 or [r["status"] for r in again] != [
+                "done", "done"]:
+            raise AssertionError("sweep aggregation or resume")
+        self.side_record["monitors"] = {"trace_bytes": size,
+                                        "sweep_s": secs, "tables": tables}
+
     # ------------------------------------------------------------ record
     def kernel_record(self):
         entries = []
@@ -2316,6 +2859,19 @@ class Smoke:
             new_paths[f"chironet_{path}"] = (
                 counts, f"phase 9, {path}: not on ChIRoNet's path (0, "
                 "counted)")
+        side_paths = {
+            "balanced": "phase 10(a): Trainer.fit with balanced_batches "
+            "under the dealt tight spec, 2 epochs replayed (scan_steps=16), "
+            "4 a step and 4 an evaluation batch",
+            "fixed": "phase 10(b): the flagship with fixed kernel sets, 3 "
+            "train steps and an evaluation, 4 a step and a batch (layer 0 "
+            "one launch of 8 groups)",
+            "balanced_cli": "phase 10(c): molkgnn_torch.cli.entry "
+            "--balanced_batches --scan_steps 16 on phase 6's SDF pair, 4 a "
+            "step and an evaluation batch",
+        }
+        for path, what in side_paths.items():
+            new_paths[path] = (self.side_launches[path], what)
         for name in ("grouped_support_score", "fused_support_score"):
             if name == "grouped_support_score":
                 (l0, s0, e0) = self.per_request[(name, "layer 0")]
@@ -2354,6 +2910,23 @@ class Smoke:
             if name == "grouped_support_score":
                 entries[-1]["backward_ms_per_step"] = self.backward_step_ms
                 entries[-1]["op_dispatch_ms"] = self.op_dispatch
+                t8, shapes8, err8, t4, graph = self.fixed_times
+                b8, by8 = bound_ms(shapes8)
+                entries[-1].update({
+                    "fixed_layer0_8_groups": {
+                        "shapes": shapes8, "max_abs_err": err8,
+                        "ms": t8[0], "plain_ms": t8[1], "library_ms": t8[2],
+                        "device_ms": min(graph[8]),
+                        "profiler_device_ms": t8[3], "bound_ms": b8,
+                        "bound_by": by8,
+                    },
+                    "fixed_layer0_4_trainable_groups": {
+                        "ms": t4[0], "plain_ms": t4[1], "library_ms": t4[2],
+                        "device_ms": min(graph[4]),
+                        "profiler_device_ms": t4[3],
+                        "bound_ms": bound_ms(shapes8[1::2])[0],
+                    },
+                })
         return {"kernels": entries}
 
 
@@ -2427,6 +3000,9 @@ def main() -> int:
             phase = "chironet"
             log("[9] ChIRoNet")
             smoke.phase_chiro(tmp)
+            phase = "side"
+            log("[10] balanced batches, fixed kernel sets, monitors, sweeps")
+            smoke.phase_side(tmp)
         record = smoke.kernel_record()
     except Exception:
         traceback.print_exc()
@@ -2442,7 +3018,8 @@ def main() -> int:
                       "screen": smoke.screen_record,
                       "evaluation": smoke.eval_record,
                       "points": smoke.points_record,
-                      "chironet": smoke.chiro_record}),
+                      "chironet": smoke.chiro_record,
+                      "side": smoke.side_record}),
           flush=True)
     print(json.dumps(record), flush=True)
     print(smi, flush=True)

@@ -17,10 +17,12 @@ scorer's plain version. The point families (SchNet, DimeNet++, SphereNet)
 train on point-cloud batches whose spec has the family's ``--cutoff``
 (``models/registry.py``); ChIRoNet trains on internal-coordinate batches
 (``graphs/chiro.py``) from its own featurisation. The kernels
-(``kernels/``) are written for kgnn only, as by the JAX CLI. Not ported
-yet, and refused with the ROADMAP item that holds them:
-``--num_devices > 1`` (A12), ``--model_parallel halo|hybrid`` (A13),
-``--balanced_batches`` (A14).
+(``kernels/``) are written for kgnn only, as by the JAX CLI.
+``--balanced_batches`` deals kgnn's batches by size under a tight spec
+(``graphs/balance.py::spec_for_dataset``; the other families ignore the
+flag, as the JAX CLI's do). Not ported yet, and refused with the ROADMAP
+item that holds them: ``--num_devices > 1`` (A12) and
+``--model_parallel halo|hybrid`` (A13).
 
 Run as ``python -m molkgnn_torch.cli.entry --dataset_name synthetic_motif``
 (add ``--device cpu`` on a machine without a card).
@@ -87,8 +89,8 @@ def build_parser(gnn_type: str) -> argparse.ArgumentParser:
         default=False,
     )
     d.add_argument("--dataset_path", type=str, default="../dataset/")
-    # Size-dealt batch composition (the JAX package's graphs/balance.py);
-    # not ported yet, refused.
+    # Size-dealt batch composition under a tight spec (graphs/balance.py;
+    # kgnn only, trainer.TrainConfig.balanced_batches).
     d.add_argument("--balanced_batches", action="store_true", default=False)
     # Sample training ids on the device (alias table over the oversampling
     # distribution, a generator of their own): no per-step host input.
@@ -193,9 +195,6 @@ def unported(args) -> str | None:
     if args.model_parallel != "none":
         return (f"--model_parallel {args.model_parallel} is not ported to "
                 "molkgnn_torch yet (ROADMAP A13)")
-    if args.balanced_batches:
-        return ("--balanced_batches is not ported to molkgnn_torch yet "
-                "(ROADMAP A14)")
     return None
 
 
@@ -367,7 +366,18 @@ def main(argv=None):
 
     device = resolve_device(args.device)  # raises for cuda without a card
     dataset = load_dataset(args)
-    spec = build_spec(args, dataset.graphs)
+    # Balanced batches (kgnn only; the other families ignore the flag, as
+    # in the JAX CLI) run under the tight spec of the dealt batches of
+    # every split and of the train draw.
+    balanced = args.balanced_batches and args.gnn_type == "kgnn"
+    if balanced:
+        from molkgnn_torch.graphs.balance import spec_for_dataset
+
+        spec = spec_for_dataset(
+            dataset, args.batch_size,
+            oversample=args.enable_oversampling_with_replacement)
+    else:
+        spec = build_spec(args, dataset.graphs)
     model = build_model(args)
     log_dir = os.path.join(args.default_root_dir, "logs")
     cfg = TrainConfig(
@@ -384,6 +394,7 @@ def main(argv=None):
         record_valid_pred=args.record_valid_pred,
         log_dir=log_dir,
         checkpoint_dir=os.path.join(args.default_root_dir, "checkpoints"),
+        balanced_batches=balanced,
         device_sampling=args.device_sampling,
         scan_steps=args.scan_steps,
         scan_chunk=args.scan_chunk,

@@ -18,16 +18,29 @@ Port of ``molkgnn_tpu/models/kgnn.py`` with the same numerical contract:
 
 Scores are [nodes, kernels] throughout. Module names give ``state_dict()``
 the key layout of the reference PyTorch Lightning checkpoint
-(``gnn_model.gnn.layers.{i}.trainable_kernelconv_set.{d-1}.*``).
+(``gnn_model.gnn.layers.{i}.trainable_kernelconv_set.{d-1}.*``; a fixed
+set's score weights under ``...fixed_kernelconv_set.{d-1}.*``).
 
-Fixed (human-designed) kernel sets, score capture, the bf16 product option
-and the cross-device psum of the JAX package are not ported yet.
+Fixed (human-designed) kernel sets (``fixed_kernels``) sit at layer 0 beside
+the trainable ones: each degree's column block is ``[fixed; trainable]``,
+and with the kernel on, all groups of the layer go to one scorer launch (8
+groups when every degree has a fixed set). Their four kernel tensors are
+constants (non-persistent buffers: no gradient, no optimizer state, not in
+``state_dict()``, as in the JAX package, whose template has no leaf for
+them); their score weights are trainable parameters. Score capture
+(``sow_scores``) keeps each layer's node-order score matrix of the last
+eager forward as ``KernelSetConv.scores`` (never under CUDA-graph capture),
+the counterpart of the JAX package's sown ``intermediates``.
+
+The bf16 product option and the cross-device psum of the JAX package are
+not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -63,6 +76,13 @@ class KernelConv(nn.Module):
     allowed support permutations) of a softmax-weighted sum of three cosine
     scores (support attrs, center attrs, bond attrs); for degree 4 in the
     last layer the score is multiplied by a chirality sign.
+
+    ``init_kernel`` (a dict of the four kernel tensors: ``x_center``,
+    ``x_support``, ``edge_attr_support``, ``p_support``) gives their
+    values: parameters with ``trainable_kernels``, else constant buffers
+    that are not in ``state_dict()``. The score weights are parameters
+    either way. Random kernels draw from ``generator``; given ones draw
+    nothing.
     """
 
     def __init__(
@@ -74,6 +94,8 @@ class KernelConv(nn.Module):
         pos_dim: int = 3,
         use_kernel: bool = False,
         generator: torch.Generator | None = None,
+        init_kernel: Optional[dict] = None,
+        trainable_kernels: bool = True,
     ):
         super().__init__()
         self.deg = deg
@@ -81,14 +103,23 @@ class KernelConv(nn.Module):
         self.node_dim = node_dim
         self.use_kernel = use_kernel
         L, d = num_kernels, deg
-
-        def randn(*shape):
-            return nn.Parameter(torch.randn(*shape, generator=generator))
-
-        self.x_center = randn(L, node_dim)
-        self.x_support = randn(L, d, node_dim)
-        self.edge_attr_support = randn(L, d, edge_dim)
-        self.p_support = randn(L, d, pos_dim)
+        shapes = dict(x_center=(L, node_dim), x_support=(L, d, node_dim),
+                      edge_attr_support=(L, d, edge_dim),
+                      p_support=(L, d, pos_dim))
+        for name, shape in shapes.items():
+            if init_kernel is None:
+                self.register_parameter(name, nn.Parameter(
+                    torch.randn(*shape, generator=generator)))
+                continue
+            value = torch.from_numpy(
+                np.array(init_kernel[name], np.float32))
+            if tuple(value.shape) != shape:
+                raise ValueError(f"init_kernel[{name!r}]: expected {shape}, "
+                                 f"got {tuple(value.shape)}")
+            if trainable_kernels:
+                self.register_parameter(name, nn.Parameter(value))
+            else:
+                self.register_buffer(name, value, persistent=False)
         # length/angle weights exist in reference checkpoints but never
         # enter the score; kept for checkpoint-shape parity.
         for name in (
@@ -105,20 +136,27 @@ class KernelConv(nn.Module):
             persistent=False,
         )
 
-    def support_operands(self, x_nei: torch.Tensor):
-        """Row-normalized (A [M, d*F], B [P, d*F, L]) operands, contiguous,
-        for the support scorer, which returns the raw (sum-cosine, argmax)
-        pair fed back through ``support_result``."""
-        d, L = self.deg, self.num_kernels
-        m = x_nei.shape[0]
-        a = normalize_rows(x_nei).reshape(m, d * self.node_dim)
-        b = (
+    def support_a(self, x_nei: torch.Tensor) -> torch.Tensor:
+        """The support scorer's row-normalized A [M, d*F], contiguous; the
+        same for every kernel set of the degree."""
+        return normalize_rows(x_nei).reshape(x_nei.shape[0],
+                                             self.deg * self.node_dim)
+
+    def support_b(self) -> torch.Tensor:
+        """The support scorer's row-normalized B [P, d*F, L], contiguous."""
+        return (
             normalize_rows(take_rows(self.x_support, self.perms, 1))
-            .reshape(L, len(self.perms), d * self.node_dim)
+            .reshape(self.num_kernels, len(self.perms),
+                     self.deg * self.node_dim)
             .permute(1, 2, 0)
             .contiguous()
         )
-        return a, b
+
+    def support_operands(self, x_nei: torch.Tensor):
+        """(A [M, d*F], B [P, d*F, L]) for the support scorer, which
+        returns the raw (sum-cosine, argmax) pair fed back through
+        ``support_result``."""
+        return self.support_a(x_nei), self.support_b()
 
     def forward(
         self,
@@ -232,9 +270,15 @@ class KernelConv(nn.Module):
 class KernelSetConv(nn.Module):
     """Four per-degree KernelConvs assembled into node-order scores.
 
-    Output [N, L1+L2+L3+L4]: node n's row holds its degree-d kernel scores in
-    that degree's column block and zeros elsewhere (degree-0 / degree>4
-    nodes are all-zero).
+    Output [N, W1+W2+W3+W4]: node n's row holds its degree-d kernel scores
+    in that degree's column block and zeros elsewhere (degree-0 / degree>4
+    nodes are all-zero). A degree's block is ``[fixed; trainable]``: the
+    fixed set's columns (``fixed_kernels[d-1]``, a dict of the four kernel
+    tensors, or None) before the trainable ones.
+
+    With ``sow_scores`` the output of the last eager forward is kept,
+    detached, as ``scores`` (None until then); a forward under CUDA-graph
+    capture keeps nothing.
     """
 
     def __init__(
@@ -245,25 +289,42 @@ class KernelSetConv(nn.Module):
         pos_dim: int = 3,
         use_kernel: bool = False,
         generator: torch.Generator | None = None,
+        fixed_kernels: Optional[Sequence[Optional[dict]]] = None,
+        sow_scores: bool = False,
     ):
         super().__init__()
         self.use_kernel = use_kernel
-        self.trainable_kernelconv_set = nn.ModuleList(
-            KernelConv(
-                deg=d,
-                num_kernels=num_kernels[d - 1],
-                node_dim=node_dim,
-                edge_dim=edge_dim,
-                pos_dim=pos_dim,
-                use_kernel=use_kernel,
-                generator=generator,
+        self.sow_scores = sow_scores
+        self.scores: Optional[torch.Tensor] = None
+        dims = dict(node_dim=node_dim, edge_dim=edge_dim, pos_dim=pos_dim,
+                    use_kernel=use_kernel)
+        # Keyed by degree - 1, the reference checkpoint's index.
+        self.fixed_kernelconv_set = nn.ModuleDict({
+            str(d - 1): KernelConv(
+                deg=d, num_kernels=int(np.shape(f["x_center"])[0]),
+                init_kernel=f, trainable_kernels=False, **dims,
             )
+            for d, f in enumerate(fixed_kernels or (None,) * 4, 1)
+            if f is not None
+        })
+        self.trainable_kernelconv_set = nn.ModuleList(
+            KernelConv(deg=d, num_kernels=num_kernels[d - 1],
+                       generator=generator, **dims)
             for d in range(1, 5)
         )
 
+    def degree_convs(self) -> list:
+        """Per degree, its KernelConvs in column order: fixed, trainable."""
+        fixed = self.fixed_kernelconv_set
+        return [
+            ([fixed[str(d)]] if str(d) in fixed else []) + [conv]
+            for d, conv in enumerate(self.trainable_kernelconv_set)
+        ]
+
     def block_widths(self) -> Tuple[int, int, int, int]:
-        """Kernel-score columns per degree."""
-        return tuple(c.num_kernels for c in self.trainable_kernelconv_set)
+        """Kernel-score columns per degree (fixed + trainable)."""
+        return tuple(sum(c.num_kernels for c in convs)
+                     for convs in self.degree_convs())
 
     def forward(
         self,
@@ -285,26 +346,36 @@ class KernelSetConv(nn.Module):
             )
             for b in buckets
         ]
-        convs = self.trainable_kernelconv_set
+        convs = self.degree_convs()
 
-        # With the kernel on, all degree buckets are scored by ONE launch.
-        results = [None] * 4
+        # With the kernel on, every group of the layer (each degree's fixed
+        # and trainable sets, which share the degree's A) is scored by ONE
+        # launch.
+        results = [[None] * len(c) for c in convs]
         if self.use_kernel:
-            ops = [
-                conv.support_operands(inp["x_nei"])
-                for conv, inp in zip(convs, inputs)
-            ]
-            results = grouped_support_score(
-                [a for a, _ in ops], [b for _, b in ops]
-            )
+            a_list, b_list = [], []
+            for degree_convs, inp in zip(convs, inputs):
+                a = degree_convs[0].support_a(inp["x_nei"])
+                for conv in degree_convs:
+                    a_list.append(a)
+                    b_list.append(conv.support_b())
+            flat = iter(grouped_support_score(a_list, b_list))
+            results = [[next(flat) for _ in c] for c in convs]
 
         blocks = []
-        for conv, inp, res, b in zip(convs, inputs, results, buckets):
-            sc = conv(**inp, support_result=res)  # [M_d, L], 0 on padding
+        for degree_convs, inp, res, b in zip(convs, inputs, results, buckets):
+            scs = [conv(**inp, support_result=r)  # [M_d, L], 0 on padding
+                   for conv, r in zip(degree_convs, res)]
+            sc = scs[0] if len(scs) == 1 else torch.cat(scs, dim=1)
             # Padded rows target node 0 with zero contribution.
             block = sc.new_zeros((n, sc.shape[1]))
             blocks.append(block.index_add_(0, b.focal_index, sc))
-        return torch.cat(blocks, dim=1)
+        out = torch.cat(blocks, dim=1)
+        if self.sow_scores and not (
+            out.is_cuda and torch.cuda.is_current_stream_capturing()
+        ):
+            self.scores = out.detach()
+        return out
 
 
 class MolGCN(nn.Module):
@@ -326,6 +397,8 @@ class MolGCN(nn.Module):
         use_kernel: bool = False,
         chirality_every_layer: bool = False,
         generator: torch.Generator | None = None,
+        fixed_kernels: Optional[Sequence[Optional[dict]]] = None,
+        sow_scores: bool = False,
     ):
         super().__init__()
         # Off = reference parity: the deg-4 chirality sign applies at the
@@ -334,6 +407,8 @@ class MolGCN(nn.Module):
         layers = []
         in_dim = node_dim
         for i in range(num_layers):
+            # Fixed sets at layer 0 only: designed kernels live in the raw
+            # node-feature space; deeper layers read score vectors.
             layer = KernelSetConv(
                 num_kernels=kernels_1hop if i == 0 else kernels_nhop,
                 node_dim=in_dim,
@@ -341,6 +416,8 @@ class MolGCN(nn.Module):
                 pos_dim=pos_dim,
                 use_kernel=use_kernel,
                 generator=generator,
+                fixed_kernels=fixed_kernels if i == 0 else None,
+                sow_scores=sow_scores,
             )
             layers.append(layer)
             in_dim = sum(layer.block_widths())
@@ -392,6 +469,8 @@ class MolKGNNNet(nn.Module):
         use_kernel: bool = False,
         chirality_every_layer: bool = False,
         generator: torch.Generator | None = None,
+        fixed_kernels: Optional[Sequence[Optional[dict]]] = None,
+        sow_scores: bool = False,
     ):
         super().__init__()
         self.graph_embedding_dim = graph_embedding_dim
@@ -407,6 +486,8 @@ class MolKGNNNet(nn.Module):
             use_kernel=use_kernel,
             chirality_every_layer=chirality_every_layer,
             generator=generator,
+            fixed_kernels=fixed_kernels,
+            sow_scores=sow_scores,
         )
         self.graph_embedding_lin1 = TorchLinear(
             self.gnn.out_dim, graph_embedding_dim, generator=generator

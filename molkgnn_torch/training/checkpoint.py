@@ -27,7 +27,9 @@ inverse of the key maps in
     running_mean/running_var;
   * KernelConv tensors and score weights pass through unchanged, from
     ``encoder/gnn/layer{i}/kernelconv{d}`` to
-    ``gnn_model.gnn.layers.{i}.trainable_kernelconv_set.{d-1}``;
+    ``gnn_model.gnn.layers.{i}.trainable_kernelconv_set.{d-1}``, and a
+    fixed set's score weights from ``.../fixed_kernelconv{d}`` to
+    ``...fixed_kernelconv_set.{d-1}``;
   * the point families' blocks map by name: ``mlp1_{l}`` to
     ``update_es.{l}.mlp.0``, ``output{b}`` to ``output_blocks.{b}``,
     ``interaction{b}/before_skip{k}`` to
@@ -100,9 +102,12 @@ def from_torch_state_dict(
     same shape (else ``ValueError``); values are cast to the model's
     dtypes. A key of ``state_dict`` that no target took raises
     ``ValueError``, except the reference's dead keys (``_IGNORED_TORCH_KEYS``
-    after the prefix) and ``*num_batches_tracked``. Fixed kernel sets are
-    not ported (ROADMAP A4), so a ``fixed_kernelconv_set`` key is left
-    over and raises, as with the JAX CLI's model, which builds none.
+    after the prefix) and ``*num_batches_tracked``. A model with fixed
+    kernel sets takes their score weights from
+    ``...fixed_kernelconv_set.{d-1}.*``; their kernel tensors are constants
+    of the model, not in its ``state_dict()``, so a checkpoint that holds
+    them (the reference's fixed tensors) has them left over and raises, as
+    the JAX importer does (its template has no leaf for them either).
     """
     sd = {str(k): v for k, v in dict(state_dict).items()}
     out: Dict[str, torch.Tensor] = {}
@@ -172,17 +177,15 @@ def _kgnn_key(collection: str, path: Tuple[str, ...]) -> Tuple[str, bool]:
         if rest[0].startswith("graph_embedding_lin"):
             leaf = "weight" if rest[1] == "kernel" else rest[1]
             return f"gnn_model.{rest[0]}.{leaf}", rest[1] == "kernel"
-        if (
-            rest[0] == "gnn"
-            and rest[1].startswith("layer")
-            and rest[2].startswith("kernelconv")
-        ):
-            i, d = int(rest[1][len("layer"):]), int(rest[2][-1])
-            return (
-                f"gnn_model.gnn.layers.{i}.trainable_kernelconv_set."
-                f"{d - 1}.{rest[3]}",
-                False,
-            )
+        if rest[0] == "gnn" and rest[1].startswith("layer"):
+            conv = rest[2]
+            sets = (("fixed_kernelconv", "fixed_kernelconv_set"),
+                    ("kernelconv", "trainable_kernelconv_set"))
+            for jax_name, set_name in sets:
+                if conv.startswith(jax_name):
+                    i, d = int(rest[1][len("layer"):]), int(conv[-1])
+                    return (f"gnn_model.gnn.layers.{i}.{set_name}."
+                            f"{d - 1}.{rest[3]}", False)
     raise KeyError(f"no port key for {collection} path {path}")
 
 
@@ -341,8 +344,7 @@ def from_jax_variables(variables: Any) -> Dict[str, torch.Tensor]:
     five families (kgnn, SchNet, DimeNet++, SphereNet, ChIRoNet).
 
     Load the result with ``model.load_state_dict(sd, strict=True)``.
-    Raises KeyError for a leaf with no counterpart in the port (e.g. fixed
-    kernel sets, not ported yet).
+    Raises KeyError for a leaf with no counterpart in the port.
     """
     encoder_key = _target_key_fn(variables)
     out: Dict[str, torch.Tensor] = {}

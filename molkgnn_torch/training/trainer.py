@@ -17,7 +17,16 @@ Port of ``molkgnn_tpu/training/trainer.py`` (its single-device paths):
     ``device_sampling`` the ids are drawn on the device too, from an alias
     table and a generator of their own, ``ceil(n_train / B)`` full batches
     an epoch; or from the host loader (``GraphLoader``, with the family's
-    collate) when ``use_device_data=False``;
+    collate, packed by a producer thread one batch ahead of the step:
+    ``data/prefetch.py``) when ``use_device_data=False``;
+  * ``balanced_batches`` (kgnn on the device-data path): each epoch's
+    sampled ids are dealt by size into batches (``graphs/balance.py``),
+    so that a tight spec (``balance.spec_for_dataset``) fits every batch;
+    the sampled multiset is the same draw, only the batches' composition
+    changes. Every dealt epoch and every dealt evaluation is checked on the
+    host against the spec before its ids go to the device (the device's
+    assembler truncates on overflow and cannot raise); evaluation
+    predictions return to the caller's order;
   * ``scan_steps = K > 1`` on the card: the first use captures one whole
     train step (batch assembly from a static id buffer or the device
     sampler, forward with the scorer kernel, loss, backward, gradient fill
@@ -75,6 +84,13 @@ from molkgnn_torch.data.dataset import (
     GraphLoader,
     epoch_order,
     oversampling_weights,
+)
+from molkgnn_torch.data.prefetch import prefetch_to_device
+from molkgnn_torch.graphs.balance import (
+    SIZE_FIELD,
+    check_batches_fit,
+    count_matrix,
+    deal_by_size,
 )
 from molkgnn_torch.graphs.device_pack import (
     alias_sampler,
@@ -159,6 +175,12 @@ class TrainConfig:
     # (alias table, a generator of its own): no per-step host input.
     # Requires use_device_data and oversample.
     device_sampling: bool = False
+    # Deal each epoch's sampled ids (and each evaluation's) into batches by
+    # size (graphs/balance.py), so that every batch fits a tight spec
+    # (balance.spec_for_dataset); each dealt matrix is checked against the
+    # spec on the host. Requires the device-data path and kgnn batches;
+    # excludes device_sampling (dealing is host-side).
+    balanced_batches: bool = False
     autosave_path: Optional[str] = None
 
     def resolve_tot_iterations(self, num_train: int) -> int:
@@ -234,6 +256,15 @@ class Trainer:
         self._device_data = None
         if config.use_device_data:
             self._device_data = build(dataset.graphs, self.device)
+        # Per-graph padded-field sizes, what balanced mode deals and checks.
+        self._counts = None
+        if config.balanced_batches:
+            if self._device_data is None or self._collate is not None:
+                raise ValueError(
+                    "balanced_batches requires the device-data path "
+                    "(use_device_data=True) and kgnn batches"
+                )
+            self._counts = count_matrix(dataset.graphs)
         self._sampler = None
         if config.device_sampling:
             if self._device_data is None:
@@ -246,6 +277,11 @@ class Trainer:
                     "device_sampling reproduces the oversampling "
                     "(with-replacement) sampler; shuffle epochs stay on the "
                     "host path"
+                )
+            if config.balanced_batches:
+                raise ValueError(
+                    "device_sampling and balanced_batches are mutually "
+                    "exclusive (dealing is host-side)"
                 )
             table = alias_sampler(oversampling_weights(self._train_labels))
             self._sampler = tuple(
@@ -389,33 +425,67 @@ class Trainer:
 
     def _epoch_id_batches(self):
         """The epoch's sampled train ids, batch by batch, -1 padded: the
-        loader's oversampling (or shuffle) over global graph ids."""
+        loader's oversampling (or shuffle) over global graph ids; in
+        balanced mode the same draw, dealt by size and checked."""
         cfg = self.config
         order = epoch_order(
             self.id_rng, self._train_labels, cfg.oversample, shuffle=True
         )
         sampled = self._train_ids[order]
+        if self._counts is not None:
+            yield from self._deal(sampled)[0]
+            return
         for start in range(0, len(sampled), cfg.batch_size):
             yield pad_ids(sampled[start : start + cfg.batch_size],
                           cfg.batch_size)
+
+    def _deal(self, ids: np.ndarray):
+        """(id matrix, position matrix) of ``ids`` dealt by size into
+        batches (``balance.deal_by_size``), checked against the spec on the
+        host: raises before any overflowing batch reaches the device."""
+        counts = self._counts
+        idm, posm = deal_by_size(ids, counts[ids, SIZE_FIELD],
+                                 self.config.batch_size)
+        check_batches_fit(idm, counts, self.spec)
+        return idm, posm
+
+    def _id_blocks(self, ids: np.ndarray):
+        """(id matrix [S, B], positions in ``ids`` of its entries) of the
+        graphs ``ids`` for evaluation: consecutive chunks, or dealt by size
+        in balanced mode (consecutive chunks of a split may overflow a
+        tight spec). -1 pads both."""
+        bs = self.config.batch_size
+        if self._counts is not None:
+            return self._deal(ids)
+        pos = np.arange(len(ids))
+        blocks = range(0, len(ids), bs)
+        return (np.stack([pad_ids(ids[s : s + bs], bs) for s in blocks]),
+                np.stack([pad_ids(pos[s : s + bs], bs) for s in blocks]))
+
+    @staticmethod
+    def _in_order(flat: np.ndarray, posm: np.ndarray, n: int) -> np.ndarray:
+        """Rows of ``flat`` (one per entry of ``posm``, flattened) put back
+        at their positions, padding dropped."""
+        pos = posm.reshape(-1)
+        valid = pos >= 0
+        out = np.empty((n, *flat.shape[1:]), flat.dtype)
+        out[pos[valid]] = flat[valid]
+        return out
 
     # ------------------------------------------------------------------
     def _predict_ids(self, ids: np.ndarray):
         """(labels, predictions) of the graphs ``ids``, assembled on the
         device in batches and scored block by block (``BlockScorer``: graph
         replays on the card); one copy of the ids to the device and one
-        readback of the predictions."""
-        bs = self.config.batch_size
+        readback of the predictions, in the order of ``ids``."""
         ids = np.asarray(ids)
-        idm = np.stack(
-            [pad_ids(ids[s : s + bs], bs) for s in range(0, len(ids), bs)]
-        )
+        idm, posm = self._id_blocks(ids)
         self.model.eval()
         preds = self._blocks(self._device_data,
                              torch.as_tensor(idm, device=self.device))
         flat = preds.cpu().numpy().reshape(-1)
         true = np.array([self.dataset.graphs[i].y for i in ids], np.float32)
-        return true, flat[(idm >= 0).reshape(-1)]
+        return true, self._in_order(flat, posm, len(ids))
 
     @torch.no_grad()
     def _predict(self, graphs):
@@ -504,7 +574,8 @@ class Trainer:
             if loader is None:
                 losses = self._epoch_steps()
             else:
-                losses = [self._step(b.to(self.device)) for b in loader]
+                losses = [self._step(b.to(self.device))
+                          for b in prefetch_to_device(loader)]
             if not losses:
                 raise RuntimeError("fit(): the epoch had no train step")
             t_dispatch = time.time()
@@ -624,35 +695,53 @@ class Trainer:
 
     def save_kernels(self, out_dir: str):
         """Write the first layer's learned kernels to ``kernels.npz``, keyed
-        ``kernelconv{d}/{name}`` as the JAX package keys them."""
+        ``kernelconv{d}/{name}`` as the JAX package keys them; a fixed
+        set's parameters (its score weights) under
+        ``fixed_kernelconv{d}/{name}``."""
         layers = getattr(getattr(self.model.gnn_model, "gnn", None),
                          "layers", None)
         if not layers:
             raise ValueError("save_kernels: model has no kgnn layer 0")
         os.makedirs(out_dir, exist_ok=True)
+        convs = [(f"kernelconv{d}", conv) for d, conv in
+                 enumerate(layers[0].trainable_kernelconv_set, 1)]
+        convs += [(f"fixed_kernelconv{int(d) + 1}", conv) for d, conv in
+                  layers[0].fixed_kernelconv_set.items()]
         flat = {
-            f"kernelconv{d}/{name}": p.detach().cpu().numpy()
-            for d, conv in enumerate(layers[0].trainable_kernelconv_set, 1)
+            f"{prefix}/{name}": p.detach().cpu().numpy()
+            for prefix, conv in convs
             for name, p in conv.named_parameters()
         }
         np.savez(os.path.join(out_dir, "kernels.npz"), **flat)
 
     @torch.no_grad()
     def save_graph_embedding(self, out_dir: str, part: str = "test"):
-        """Write the split's graph embeddings and smiles."""
+        """Write the split's graph embeddings and smiles, in split order
+        (balanced mode: batches dealt and checked as in evaluation, then
+        put back in order)."""
         os.makedirs(out_dir, exist_ok=True)
         graphs = self.dataset.subset(part)
         self.model.eval()
-        embs, masks = [], []
-        for batch in GraphLoader(graphs, self.spec, self.config.batch_size,
-                                 collate=self._collate):
-            embs.append(self.model(batch.to(self.device))[1])
-            masks.append(batch.graph_mask.numpy())
-        all_emb = torch.cat(embs).cpu().numpy()
-        np.save(
-            os.path.join(out_dir, "graph_embedding.npy"),
-            all_emb[np.concatenate(masks)],
-        )
+        if self._counts is not None:
+            ids = np.asarray(self.dataset.split[part])
+            idm, posm = self._deal(ids)
+            embs = [
+                self.model(self._gather(
+                    self._device_data,
+                    torch.as_tensor(row, device=self.device), self.spec))[1]
+                for row in idm
+            ]
+            all_emb = self._in_order(torch.cat(embs).cpu().numpy(), posm,
+                                     len(ids))
+        else:
+            embs, masks = [], []
+            for batch in GraphLoader(graphs, self.spec,
+                                     self.config.batch_size,
+                                     collate=self._collate):
+                embs.append(self.model(batch.to(self.device))[1])
+                masks.append(batch.graph_mask.numpy())
+            all_emb = torch.cat(embs).cpu().numpy()[np.concatenate(masks)]
+        np.save(os.path.join(out_dir, "graph_embedding.npy"), all_emb)
         with open(
             os.path.join(out_dir, "smiles_for_graph_embedding.txt"), "w"
         ) as f:

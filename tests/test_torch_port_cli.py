@@ -219,7 +219,7 @@ def test_cli_runs_chironet(flags, tmp_path, dataset_path):
     (["--num_devices", "2"], "A12"),
     (["--model_parallel", "halo"], "A13"),
     (["--model_parallel", "hybrid", "--num_devices", "1"], "A13"),
-    (["--balanced_batches"], "A14"),
+    (["--balanced_batches", "--num_devices", "2"], "A12"),
 ])
 def test_cli_refuses_what_is_not_ported(flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):

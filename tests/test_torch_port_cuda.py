@@ -268,7 +268,8 @@ def test_cuda_trainer_step():
 
 def _small_run(tmp_path, sub, **kw):
     """A 2-layer model with the scorer kernel and dropout 0.25 on 320
-    tie-free molecules (256 train: 8 steps of 32 an epoch), on the card."""
+    tie-free molecules (256 train: 8 steps of 32 an epoch), on the card;
+    with balanced_batches, under the dealt tight spec."""
     from molkgnn_torch.data.dataset import make_tie_free_dataset
     from molkgnn_torch.graphs.batch import spec_for_graphs
     from molkgnn_torch.models.kgnn import MolKGNNNet
@@ -286,8 +287,13 @@ def _small_run(tmp_path, sub, **kw):
                tot_iterations=40, progress=False,
                log_dir=str(tmp_path / sub / "logs"))
     cfg.update(kw)
-    return Trainer(model, ds, spec_for_graphs(ds.graphs, 32),
-                   TrainConfig(**cfg))
+    if cfg.get("balanced_batches"):
+        from molkgnn_torch.graphs.balance import spec_for_dataset
+
+        spec = spec_for_dataset(ds, 32)
+    else:
+        spec = spec_for_graphs(ds.graphs, 32)
+    return Trainer(model, ds, spec, TrainConfig(**cfg))
 
 
 def _max_param_diff(a, b):
@@ -803,4 +809,125 @@ def test_cuda_chiro_screen_and_export():
     assert isinstance(got_spec, ChiroBatchSpec) and got_spec == spec
     out, _ = call(batch_chiro(graphs[:8], spec))
     np.testing.assert_allclose(out.cpu().numpy(), want[:8], rtol=1e-5,
+                               atol=1e-5)
+
+
+def _fixed_sets(counts=(4, 6, 8, 10), f=28, e=7, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(
+        {"x_center": rng.standard_normal((n, f)),
+         "x_support": rng.standard_normal((n, d, f)),
+         "edge_attr_support": rng.standard_normal((n, d, e)),
+         "p_support": rng.standard_normal((n, d, 3))}
+        for d, n in enumerate(counts, 1))
+
+
+@pytest.mark.cuda
+def test_cuda_eight_group_launch_matches_plain():
+    """One launch over the 8 groups of a fixed-kernel layer 0 at the
+    flagship's batch-1024 rows: each degree's fixed and trainable sets
+    share one A tensor; outputs against the plain version; gradients
+    against autograd through it, A's the sum of both groups', none for the
+    frozen B."""
+    _needs_card()
+    rng = np.random.default_rng(8)
+    rows = (19232, 13640, 8144, 7064)
+    a_list, b_list = [], []
+    for d, (m, lf, lt) in enumerate(zip(rows, (4, 6, 8, 10),
+                                        (10, 20, 30, 50)), 1):
+        p = (1, 2, 6, 12)[d - 1]
+        (a,), (bf,) = _unit_operands(rng, [(m, d * 28, lf, p)])
+        (_,), (bt,) = _unit_operands(rng, [(1, d * 28, lt, p)])
+        a_list += [a.requires_grad_(), a]
+        b_list += [bf, bt.requires_grad_()]
+    before = ss.grouped_support_score.launches
+    outs = ss.grouped_support_score(a_list, b_list)
+    torch.cuda.synchronize()
+    assert ss.grouped_support_score.launches == before + 1
+    _assert_matches_plain([(b.detach(), i) for b, i in outs],
+                          [a.detach() for a in a_list], b_list)
+    # Zero upstream gradient within 1e-4 of a tie, as in
+    # test_cuda_scorer_gradients_match_plain.
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    g = []
+    for a, b in zip(a_list, b_list):
+        sc = torch.einsum("mk,pkl->mlp", a.detach().double(), b.double())
+        top2 = sc.topk(min(2, sc.shape[2]), dim=2).values
+        clear = (top2[..., 0] - top2[..., -1] > 1e-4) | (sc.shape[2] == 1)
+        g.append(torch.where(clear, torch.randn(
+            sc.shape[:2], generator=gen, device="cuda"), 0.0))
+    shared = [a_list[i] for i in range(0, 8, 2)]
+    trained = [b_list[i] for i in range(1, 8, 2)]
+    got = torch.autograd.grad(
+        sum((best * w).sum() for (best, _), w in zip(outs, g)),
+        shared + trained)
+    pa = [a.detach().clone().requires_grad_() for a in shared]
+    pb = [b.detach().clone().requires_grad_() for b in b_list]
+    sum((torch.einsum("mk,pkl->mlp", pa[i // 2], pb[i]).max(dim=2).values
+         * g[i]).sum() for i in range(8)).backward()
+    want = [x.grad for x in pa] + [pb[i].grad for i in range(1, 8, 2)]
+    for x, y in zip(got, want):
+        assert (x - y).abs().max().item() <= 1e-4
+    assert all(not b.requires_grad for b in b_list[::2])
+
+
+@pytest.mark.cuda
+def test_cuda_fixed_kernel_model_matches_cpu():
+    """A 2-layer model with fixed sets for every degree: the kernel path on
+    the card against the plain path on the CPU, same weights, tie-free
+    molecules; layer 0's captured scores too; 2 launches a forward."""
+    _needs_card()
+    from molkgnn_torch.analyses.fixed_kernels import capture_layer0_scores
+    from molkgnn_torch.graphs.batch import batch_graphs, spec_for_graphs
+    from molkgnn_torch.models.kgnn import MolKGNNNet
+    from molkgnn_torch.training.model import GNNModel
+
+    graphs = _tie_free_graphs(32)
+    spec = spec_for_graphs(graphs, 32)
+    batch = batch_graphs(graphs, spec)
+    gen = torch.Generator().manual_seed(2)
+    model = GNNModel(MolKGNNNet(num_layers=2, use_kernel=True,
+                                fixed_kernels=_fixed_sets(), generator=gen),
+                     generator=gen).eval()
+    with torch.no_grad():
+        want = model(batch)
+    want_scores = capture_layer0_scores(model, batch)
+    model.cuda()
+    before = ss.grouped_support_score.launches
+    with torch.no_grad():
+        got = model(batch.to("cuda"))
+    torch.cuda.synchronize()
+    assert ss.grouped_support_score.launches == before + 2
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
+    got_scores = capture_layer0_scores(model, batch.to("cuda"))
+    np.testing.assert_allclose(got_scores, want_scores, rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_balanced_graphed_steps_equal_eager(tmp_path):
+    """Balanced batches under the dealt tight spec, eager against the
+    captured step (scan_steps=8): the same dealt ids, so losses within
+    1e-5 relative and parameters within 1e-5; 2 launches a step and a
+    validation batch; balanced evaluation equals the cover spec's."""
+    _needs_card()
+    runs = {}
+    for k in (1, 8):
+        t = _small_run(tmp_path, f"k{k}", scan_steps=k,
+                       balanced_batches=True)
+        before = ss.grouped_support_score.launches
+        t.fit()
+        runs[k] = (t, ss.grouped_support_score.launches - before)
+    eager, graphed = runs[1][0], runs[8][0]
+    assert graphed._graph is not None and eager.step == graphed.step == 8
+    np.testing.assert_allclose(graphed.step_losses, eager.step_losses,
+                               rtol=1e-5)
+    assert _max_param_diff(eager, graphed) <= 1e-5
+    assert runs[1][1] == runs[8][1] == 2 * 8 + 2
+    cover = _small_run(tmp_path, "cover")
+    cover.model.load_state_dict(graphed.model.state_dict())
+    ids = graphed.dataset.split["valid"]
+    np.testing.assert_allclose(graphed._predict_ids(ids)[1],
+                               cover._predict_ids(ids)[1], rtol=1e-5,
                                atol=1e-5)

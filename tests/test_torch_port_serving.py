@@ -144,6 +144,17 @@ import molkgnn_torch.graphs.chiro
 import molkgnn_torch.graphs.device_chiro
 import molkgnn_torch.models.chironet
 import molkgnn_torch.tools.enantiomer
+import molkgnn_torch.graphs.balance
+import molkgnn_torch.data.prefetch
+import molkgnn_torch.training.contrastive
+import molkgnn_torch.training.monitors
+import molkgnn_torch.analyses.fixed_kernels
+import molkgnn_torch.analyses.kernel_reader
+import molkgnn_torch.analyses.embedding_compare
+import molkgnn_torch.experiments.sweep
+import molkgnn_torch.experiments.aggregate
+import molkgnn_torch.experiments.cli
+import molkgnn_torch.tools.replay_step
 import chip_smoke
 loaded = sorted(m for m in sys.modules if banned(m))
 assert not loaded, loaded
