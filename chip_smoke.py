@@ -165,6 +165,36 @@ Phases, in order; any failure exits non-zero and prints no result line:
               synthetic_motif) through molkgnn_torch.cli.entry
               subprocesses on the card, aggregated (2 rows), then resumed
               (both skipped).
+ 11. data parallel (molkgnn_torch/parallel, torch.distributed), the
+              flagship at batch 1024 on phase 10's 8192 tie-free molecules:
+              (a) Trainer(mesh=make_mesh(1)): one NCCL rank, scan_steps=16,
+              the all-reduce captured inside the step; on host ids its
+              first 3 steps against the single-device Trainer from the
+              same weights and ids (losses and parameters within 1e-5);
+              with device sampling (the rank-seeded stream) finite losses;
+              an epoch of each counted (4 launches a step); train
+              graphs/s of the four forms, the replayed step by CUDA events
+              and its profile, both in turns; the bucket's bytes and the
+              NCCL kernels' device ms a step. (b) Two ranks sharing the
+              card over gloo (NCCL refuses two ranks on one device),
+              spawned by molkgnn_torch.parallel.launch: gloo's all_reduce
+              and all_gather on CUDA tensors; world-2 evaluation of 3
+              blocks (padded to 4) against one device within 1e-5; 3 eager
+              DP steps against a plain DP step in this process (both
+              sub-batches' gradients and BatchNorm statistics averaged),
+              parameters within 1e-5; rank 0's launches counted. (c)
+              screen_library(mesh=make_mesh(1)) over phase 7's 131,072
+              molecules, counted, graphs/s beside the single-device screen
+              in turns; on 2048 tie-free molecules its scores against the
+              single-device screen, and DP evaluation at world 1 against
+              one device, within 1e-5. (d) molkgnn_torch.cli.entry under
+              python -m torch.distributed.run --nproc_per_node 1 on phase
+              6's SDF pair (--device_sampling --scan_steps 16, 1 epoch):
+              one set of artifacts, finite metrics, the scorer launches
+              from its task_info.log = 4 x (steps + evaluation batches);
+              --test on its root gives its test predictions within 1e-4;
+              --num_devices one above the cards (2 on a one-card machine)
+              exits naming both numbers.
 
 The last lines are the records of the phases' numbers, the kernel record
 ({"kernels": [...]}), the card's name and power limit, and
@@ -2813,6 +2843,362 @@ class Smoke:
         self.side_record["monitors"] = {"trace_bytes": size,
                                         "sweep_s": secs, "tables": tables}
 
+    # ------------------------------------------------------------ phase 11
+    def phase_dp(self, graphs, spec, tmp):
+        """Data parallel on torch.distributed (see the module doc): (a) one
+        NCCL rank, replayed; (b) two gloo ranks sharing the card; (c)
+        screening and evaluation at world 1; (d) the CLI under
+        torch.distributed.run. Each main path counts the scorer's launches
+        from 0."""
+        import torch.distributed as dist
+
+        from molkgnn_torch.data.dataset import make_tie_free_dataset
+
+        t_phase = time.perf_counter()
+        self.dp_record, self.dp_launches = {}, {}
+        ds = getattr(self, "tie_free_data", None) or make_tie_free_dataset(
+            NUM_MOLECULES, NUM_MOLECULES * 3 // 4, seed=SEED)
+        try:
+            self.dp_world_one(ds)
+            self.dp_screen_eval(graphs, spec, ds)
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+        self.dp_two_ranks(ds, tmp)
+        self.dp_cli(tmp)
+        secs = time.perf_counter() - t_phase
+        self.dp_record["seconds"] = secs
+        log(f"  phase 11 took {secs:.1f} s")
+
+    def dp_trainer(self, ds, mesh, **kw):
+        from molkgnn_torch.graphs.batch import spec_for_graphs
+        from molkgnn_torch.training.trainer import TrainConfig, Trainer
+
+        model = self.flagship(4, True, seed=SEED + 11)
+        return Trainer(model, ds, spec_for_graphs(ds.graphs, BATCH),
+                       TrainConfig(batch_size=BATCH, progress=False, **kw),
+                       mesh=mesh)
+
+    def dp_world_one(self, ds):
+        """(a) of phase 11: Trainer(mesh=make_mesh(1)) with scan_steps=16,
+        on host ids and with device sampling, beside the single-device
+        Trainer from the same weights."""
+        import numpy as np
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        from molkgnn_torch.parallel.data_parallel import make_mesh
+
+        torch = self.torch
+        mesh = make_mesh(1)
+        backend = torch.distributed.get_backend()
+        if backend != "nccl":
+            raise AssertionError(f"a CUDA mesh runs {backend}, not NCCL")
+        single = self.dp_trainer(ds, None, scan_steps=16)
+        dp = self.dp_trainer(ds, mesh, scan_steps=16)
+        blocks = np.stack(list(single._epoch_id_batches()))[:3]
+        losses = {"single": [], "dp": []}
+        for ids in blocks:
+            ids = torch.as_tensor(ids, device="cuda")
+            losses["single"].append(float(single._graph_step(ids)))
+            losses["dp"].append(float(dp._graph_step(ids)))
+        if dp._graph is None:
+            raise AssertionError("the world-1 DP step was not captured")
+        rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(losses["dp"], losses["single"]))
+        sd = single.model.state_dict()
+        diff = max((v - sd[k]).abs().max().item()
+                   for k, v in dp.model.state_dict().items())
+        log(f"  world-1 NCCL DP (captured, the all-reduce inside the graph) "
+            f"against one device, 3 steps on the same ids: losses "
+            f"{losses['dp']} / {losses['single']}, max relative difference "
+            f"{rel:.3e}, max parameter difference {diff:.3e}; all-reduced "
+            f"bucket {dp._sync.nbytes} bytes a step")
+        if rel > 1e-5 or diff > 1e-5:
+            raise AssertionError("world-1 DP and one device differ by > 1e-5")
+        sampled = self.dp_trainer(ds, mesh, scan_steps=16,
+                                  device_sampling=True)
+        single_sampled = self.dp_trainer(ds, None, scan_steps=16,
+                                         device_sampling=True)
+        # The main paths, counted: an epoch of each DP trainer (the
+        # sampled one's holds its warm-up steps and capture).
+        for name, trainer in (("dp_world1", dp), ("dp_sampling", sampled)):
+            reset_launches()
+            steps = trainer._epoch_steps()
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            self.dp_launches[name] = counts
+            if counts != {"grouped_support_score": 4 * len(steps),
+                          "fused_support_score": 0}:
+                raise AssertionError(f"{name}: launches {counts} for "
+                                     f"{len(steps)} steps")
+            if not np.isfinite(torch.stack(steps).cpu().numpy()).all():
+                raise AssertionError(f"{name}: a loss is not finite")
+            log(f"  {name}: {len(steps)} steps, scorer launches {counts}")
+        trainers = {"single": (single, 4), "dp world 1": (dp, 4),
+                    "single+sampling": (single_sampled, 4),
+                    "dp world 1+sampling": (sampled, 4)}
+        names = list(trainers)
+        rates = self.epoch_rates(trainers, names + names[::-1],
+                                 "flagship b1024 scan_steps=16")
+        replays = {}
+        for name in ("single", "dp world 1", "dp world 1", "single"):
+            rec = self.replay_profile(trainers[name][0], f"{name} replayed")
+            replays.setdefault(name, []).append(rec)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(16):
+                dp._graph_step()
+            torch.cuda.synchronize()
+        nccl = [(e.self_device_time_total / 1e3, e.count, e.key)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and "nccl" in e.key.lower() and e.self_device_time_total > 0]
+        nccl_ms = sum(r[0] for r in nccl) / 16
+        log(f"  NCCL kernels in 16 DP replays: "
+            f"{[(round(ms, 4), n, k[:60]) for ms, n, k in nccl]}; "
+            f"{nccl_ms:.4f} ms a step (0 where NCCL launched no kernel)")
+        self.dp_record["world1"] = {
+            "max_rel_loss_diff": rel, "max_param_diff": diff,
+            "bucket_bytes": dp._sync.nbytes, "graphs_per_s": rates,
+            "replays": replays, "nccl_ms_per_step": nccl_ms,
+            "launches": {k: self.dp_launches[k]
+                         for k in ("dp_world1", "dp_sampling")},
+        }
+        self.dp_trainers = (single, dp, mesh)
+
+    def dp_screen_eval(self, graphs, spec, ds):
+        """(c) of phase 11: screen_library(mesh=make_mesh(1)) beside the
+        single-device screen over phase 7's library; scores held on
+        tie-free molecules; DP evaluation at world 1 against one device."""
+        import numpy as np
+
+        from molkgnn_torch.graphs.batch import spec_for_graphs
+        from molkgnn_torch.serving.predictor import Predictor
+
+        torch = self.torch
+        single, dp, mesh = self.dp_trainers
+        model = self.flagship(4, True)
+        pred = Predictor(model, model.state_dict(), spec)
+        library = list(graphs) * SCREEN_REPEAT
+        n = len(library)
+        blocks = sum(-(-min(SLAB, n - s) // BATCH) for s in range(0, n, SLAB))
+        secs = {"single": [], "dp": []}
+        for i, name in enumerate(("dp", "single", "single", "dp")):
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pred.screen_library(library, slab=SLAB,
+                                mesh=mesh if name == "dp" else None)
+            secs[name].append(time.perf_counter() - t0)
+            if i == 0:  # the DP main path, counted
+                counts = launch_counts()
+                self.dp_launches["dp_screen"] = counts
+                if counts != {"grouped_support_score": 4 * blocks,
+                              "fused_support_score": 0}:
+                    raise AssertionError(f"DP screening launches {counts}")
+        card = torch.cuda.get_device_name(0)
+        for name, s in secs.items():
+            log(f"  screen_library {name} on {card}: "
+                f"{[round(n / x, 1) for x in s]} graphs/s ({n} molecules)")
+        mols = ds.graphs[:2048]
+        tf = Predictor(model, model.state_dict(), spec_for_graphs(mols, BATCH))
+        gap = float(np.abs(tf.screen_library(mols, slab=1200, mesh=mesh)
+                           - tf.screen_library(mols, slab=1200)).max())
+        dp.model.load_state_dict(single.model.state_dict())
+        ids = np.asarray(ds.split["valid"])
+        reset_launches()
+        _, got = dp._predict_ids(ids)
+        counts = launch_counts()
+        _, want = single._predict_ids(ids)
+        eval_gap = float(np.abs(got - want).max())
+        self.dp_launches["dp_eval"] = counts
+        log(f"  tie-free: DP screen_library against one device max |diff| "
+            f"{gap:.3e} (2048 molecules, 2 slabs); DP evaluation of "
+            f"{len(ids)} molecules against one device {eval_gap:.3e}, "
+            f"launches {counts}")
+        if gap > 1e-5 or eval_gap > 1e-5:
+            raise AssertionError("DP screening or evaluation differs")
+        want_eval = 4 * -(-len(ids) // BATCH)
+        if counts != {"grouped_support_score": want_eval,
+                      "fused_support_score": 0}:
+            raise AssertionError(f"DP evaluation launches {counts}")
+        self.dp_record["screen"] = {
+            "molecules": n, "seconds": secs,
+            "graphs_per_s": {k: [n / x for x in v] for k, v in secs.items()},
+            "tie_free_gap": gap, "eval_gap": eval_gap,
+        }
+
+    def dp_two_ranks(self, ds, tmp):
+        """(b) of phase 11: two ranks sharing the card over gloo (NCCL
+        refuses two ranks on one device), spawned by the port's launcher:
+        gloo's all_reduce and all_gather on CUDA tensors, DP evaluation at
+        world 2 (3 blocks, padded to 4), and 3 eager steps against a plain
+        DP step in this process."""
+        import pickle
+
+        import numpy as np
+
+        from molkgnn_torch.parallel import launch
+        from molkgnn_torch.parallel.data_parallel import batch_norm_buffers
+        from molkgnn_torch.training.optim import fill_missing_grads
+
+        torch = self.torch
+        path = os.path.join(tmp, "dp2")
+        os.makedirs(path, exist_ok=True)
+        rng = np.random.default_rng(SEED + 11)
+        train = np.asarray(ds.split["train"], np.int32)
+        job = {"ids": rng.choice(train, (3, 2, BATCH)).astype(np.int32),
+               "eval": train[:2 * BATCH + BATCH // 2]}
+        with open(os.path.join(path, "job.pkl"), "wb") as f:
+            pickle.dump((ds, job), f)
+        t0 = time.perf_counter()
+        launch.spawn(_dp_rank, 2, args=(path,), backend="gloo")
+        spawn_s = time.perf_counter() - t0
+        with open(os.path.join(path, "rank0.pkl"), "rb") as f:
+            ranks = pickle.load(f)
+
+        plain = self.dp_trainer(ds, None)
+        _, want_eval = plain._predict_ids(job["eval"])
+        bn = batch_norm_buffers(plain.model)
+        for step in range(3):
+            start_bn = [b.clone() for b in bn]
+            masks = plain.dropout_rng.get_state()
+            grads, stats = [], []
+            for r in range(2):
+                for b, v in zip(bn, start_bn):
+                    b.copy_(v)
+                plain.dropout_rng.set_state(masks)
+                ids = torch.as_tensor(job["ids"][step, r], device="cuda")
+                plain._loss(plain._gather(plain._device_data, ids,
+                                          plain.spec)).backward()
+                fill_missing_grads(plain._params)
+                grads.append([p.grad.clone() for p in plain._params])
+                stats.append([b.clone() for b in bn])
+            with torch.no_grad():
+                for p, g0, g1 in zip(plain._params, *grads):
+                    p.grad.copy_((g0 + g1) / 2)
+                for b, s0, s1 in zip(bn, *stats):
+                    b.copy_((s0 + s1) / 2)
+            plain._update()
+        sd = plain.model.state_dict()
+        diff = max((v.cuda() - sd[k]).abs().max().item()
+                   for k, v in ranks["state"].items())
+        eval_gap = float(np.abs(ranks["eval"] - want_eval).max())
+        log(f"  2 gloo ranks on one card (spawned in {spawn_s:.1f} s): "
+            f"gloo all_reduce/all_gather on CUDA tensors {ranks['gloo']}; "
+            f"3 eager steps {ranks['step_ms']} ms (rank 0, host clock, "
+            f"synchronised), losses {ranks['losses']}; parameters against "
+            f"the plain DP step max |diff| {diff:.3e}; world-2 evaluation "
+            f"of {len(job['eval'])} molecules (3 blocks on 2 ranks) against "
+            f"one device {eval_gap:.3e}; rank 0's scorer launches "
+            f"{ranks['launches']}")
+        if diff > 1e-5 or eval_gap > 1e-5:
+            raise AssertionError("2-rank gloo DP differs from the plain DP "
+                                 "step or single-device evaluation")
+        want = 4 * (3 + 2)  # 3 steps, 2 of the 4 padded blocks
+        if ranks["launches"] != {"grouped_support_score": want,
+                                 "fused_support_score": 0}:
+            raise AssertionError(f"rank 0 launches {ranks['launches']}")
+        self.dp_launches["dp_two_ranks"] = ranks["launches"]
+        self.dp_record["two_ranks"] = {
+            "spawn_s": spawn_s, "step_ms": ranks["step_ms"],
+            "max_param_diff": diff, "eval_gap": eval_gap,
+            "gloo": ranks["gloo"],
+        }
+
+    def dp_cli(self, tmp):
+        """(d) of phase 11: the CLI under torch.distributed.run (one NCCL
+        rank) on phase 6's SDF pair, counted; --test on its root in this
+        process; --num_devices 2 refused on a one-card machine."""
+        import numpy as np
+
+        from molkgnn_torch.cli import entry
+        from molkgnn_torch.tools.enantiomer import (
+            SAMPLING_ARGS,
+            parse_test_result,
+        )
+
+        ds, _ = self.cli_data
+        sizes = {k: len(v) for k, v in ds.split.items()}
+        out = os.path.join(tmp, "cli_dp")
+        common = ["--dataset_name", "1798", "--dataset_path",
+                  os.path.join(tmp, "dataset"), *SAMPLING_ARGS]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "1", "-m", "molkgnn_torch.cli.entry",
+             *common, "--max_epochs", "1", "--default_root_dir", out],
+            capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"torch.distributed.run CLI: exit "
+                                 f"{proc.returncode}\n{proc.stderr[-3000:]}")
+        logs = os.path.join(out, "logs")
+        tested = parse_test_result(os.path.join(logs, "test_result.log"))
+        with open(os.path.join(logs, "task_info.log")) as f:
+            info = f.read()
+        launched = dict(
+            (name, int(n)) for name, n in
+            (part.split() for part in info.split("scorer_launches: ")[1]
+             .splitlines()[0].split(", ")))
+        steps = -(-sizes["train"] // 32)
+        eval_batches = (-(-sizes["valid"] // 32)
+                        + (len(tested) + 1) * -(-sizes["test"] // 32))
+        want = 4 * (steps + eval_batches)
+        with open(os.path.join(logs, "history.json")) as f:
+            history = json.load(f)
+        finite = all(np.isfinite(m[k]) for m in tested.values()
+                     for k in ("AUC", "logAUC_0.001_0.1", "logAUC_0.001_1"))
+        log(f"  CLI under torch.distributed.run --nproc_per_node 1 "
+            f"(NCCL, --device_sampling --scan_steps 16, 1 epoch at batch "
+            f"32) in {secs:.1f} s: {steps} steps, {eval_batches} "
+            f"evaluation batches; task_info.log: "
+            f"{info.count('task_name:')} run, scorer launches {launched} "
+            f"(want {want} grouped); train loss "
+            f"{history[0]['train_loss']:.4f}; test [last] AUC "
+            f"{tested['last']['AUC']:.4f}")
+        if ("ranks: 1" not in info or info.count("task_name:") != 1
+                or not finite or not np.isfinite(history[0]["train_loss"])):
+            raise AssertionError(f"DP CLI artifacts: {info!r} {tested}")
+        if launched != {"fused_support_score": 0,
+                        "grouped_support_score": want}:
+            raise AssertionError(f"DP CLI launches {launched}")
+        self.dp_launches["dp_cli"] = launched
+
+        def scores():
+            return {tag: np.loadtxt(os.path.join(
+                logs, f"test_sample_scores_{tag}.log"), delimiter=",")
+                for tag in tested}
+
+        before = scores()
+        if entry.main(common + ["--default_root_dir", out, "--test"]) != 0:
+            raise AssertionError("--test on the DP CLI's root failed")
+        after = scores()
+        pred_gap = max(float(np.abs(after[t][:, 0] - b[:, 0]).max())
+                       for t, b in before.items())
+        log(f"  --test on its root: largest prediction difference "
+            f"{pred_gap:.3e}")
+        if pred_gap > 1e-4:
+            raise AssertionError("--test predictions differ from the fit's")
+        cards = self.torch.cuda.device_count()
+        try:
+            entry.main(["--num_devices", str(cards + 1), "--dataset_name",
+                        "synthetic", "--default_root_dir",
+                        os.path.join(tmp, "cli_refused_dp")])
+            message = None
+        except SystemExit as e:
+            message = str(e)
+        log(f"  --num_devices {cards + 1} on {cards} card(s): {message}")
+        if not message or f"has {cards}" not in message or (
+                f"{cards + 1} CUDA devices" not in message):
+            raise AssertionError(f"--num_devices {cards + 1} was not "
+                                 "refused naming both numbers")
+        self.dp_record["cli"] = {"seconds": secs, "launches": launched,
+                                 "test": tested, "retest_gap": pred_gap,
+                                 "refused": message}
+
     # ------------------------------------------------------------ record
     def kernel_record(self):
         entries = []
@@ -2872,6 +3258,24 @@ class Smoke:
         }
         for path, what in side_paths.items():
             new_paths[path] = (self.side_launches[path], what)
+        dp_paths = {
+            "dp_world1": "phase 11(a): Trainer(mesh=make_mesh(1)) on host "
+            "ids, scan_steps=16, the NCCL all-reduce inside the captured "
+            "step, an epoch, 4 a step",
+            "dp_sampling": "phase 11(a): the same with device_sampling, an "
+            "epoch, 4 a step",
+            "dp_screen": "phase 11(c): Predictor.screen_library(mesh="
+            "make_mesh(1)), 131,072 molecules, 4 a block",
+            "dp_eval": "phase 11(c): DP evaluation at world 1 "
+            "(Trainer._predict_ids), 4 a block",
+            "dp_two_ranks": "phase 11(b): rank 0 of 2 gloo ranks on one "
+            "card, its 2 of 4 evaluation blocks and 3 eager steps, 4 each",
+            "dp_cli": "phase 11(d): molkgnn_torch.cli.entry under "
+            "torch.distributed.run --nproc_per_node 1, read from its "
+            "task_info.log, 4 a step and an evaluation batch",
+        }
+        for path, what in dp_paths.items():
+            new_paths[path] = (self.dp_launches[path], what)
         for name in ("grouped_support_score", "fused_support_score"):
             if name == "grouped_support_score":
                 (l0, s0, e0) = self.per_request[(name, "layer 0")]
@@ -2928,6 +3332,51 @@ class Smoke:
                     },
                 })
         return {"kernels": entries}
+
+
+def _dp_rank(path):
+    """A rank of phase 11(b), started by molkgnn_torch.parallel.launch in a
+    gloo world of 2 on one card: gloo's collectives on CUDA tensors, the
+    world-2 evaluation, 3 eager DP steps; rank 0 writes its results."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from molkgnn_torch.parallel.data_parallel import make_mesh
+
+    mesh = make_mesh(2, backend="gloo")
+    rank = dist.get_rank()
+    t = torch.full((4,), float(rank + 1), device="cuda")
+    dist.all_reduce(t)
+    parts = [torch.empty(4, device="cuda") for _ in range(2)]
+    dist.all_gather(parts, t)
+    gloo = (t.tolist() == [3.0] * 4
+            and [p.tolist() for p in parts] == [[3.0] * 4] * 2)
+    if not gloo:
+        raise AssertionError(f"gloo on CUDA tensors: {t} {parts}")
+    with open(os.path.join(path, "job.pkl"), "rb") as f:
+        ds, job = pickle.load(f)
+    smoke = Smoke(torch)
+    trainer = smoke.dp_trainer(ds, mesh)
+    reset_launches()
+    _, pred = trainer._predict_ids(job["eval"])
+    losses, step_ms = [], []
+    for step in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = job["ids"][step, rank]
+        losses.append(float(trainer._step_ids(ids)))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    if rank == 0:
+        with open(os.path.join(path, "rank0.pkl"), "wb") as f:
+            pickle.dump({
+                "gloo": gloo, "eval": pred, "losses": losses,
+                "step_ms": step_ms, "launches": launch_counts(),
+                "state": {k: v.cpu() for k, v in
+                          trainer.model.state_dict().items()},
+            }, f)
 
 
 def main() -> int:
@@ -3003,6 +3452,9 @@ def main() -> int:
             phase = "side"
             log("[10] balanced batches, fixed kernel sets, monitors, sweeps")
             smoke.phase_side(tmp)
+            phase = "data parallel"
+            log("[11] data parallel on torch.distributed")
+            smoke.phase_dp(graphs, spec, tmp)
         record = smoke.kernel_record()
     except Exception:
         traceback.print_exc()
@@ -3019,7 +3471,8 @@ def main() -> int:
                       "evaluation": smoke.eval_record,
                       "points": smoke.points_record,
                       "chironet": smoke.chiro_record,
-                      "side": smoke.side_record}),
+                      "side": smoke.side_record,
+                      "data_parallel": smoke.dp_record}),
           flush=True)
     print(json.dumps(record), flush=True)
     print(smi, flush=True)

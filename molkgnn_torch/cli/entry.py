@@ -1,7 +1,7 @@
 """CLI entry point of the port: train / validate / test a model on a dataset.
 
-Port of ``molkgnn_tpu/cli/entry.py`` on one device, for every
-``--gnn_type`` (kgnn, schnet, dimenet_pp, spherenet, chironet): the same
+Port of ``molkgnn_tpu/cli/entry.py``, on one device or data parallel, for
+every ``--gnn_type`` (kgnn, schnet, dimenet_pp, spherenet, chironet): the same
 flags (every group and default of its ``build_parser``, so any argv the
 JAX CLI takes parses), plus ``--device {cuda,cpu}`` (default ``cuda``),
 the counterpart of ``JAX_PLATFORMS``. The derived iteration
@@ -21,8 +21,19 @@ train on point-cloud batches whose spec has the family's ``--cutoff``
 ``--balanced_batches`` deals kgnn's batches by size under a tight spec
 (``graphs/balance.py::spec_for_dataset``; the other families ignore the
 flag, as the JAX CLI's do). Not ported yet, and refused with the ROADMAP
-item that holds them: ``--num_devices > 1`` (A12) and
-``--model_parallel halo|hybrid`` (A13).
+item that holds it: ``--model_parallel halo|hybrid`` (A13).
+
+Data parallel (``parallel/``): ``--num_devices N > 1`` trains over N
+ranks, one process a device. Without a launcher the CLI starts the N
+processes itself (``parallel/launch.py``): rank r on ``cuda:r`` with NCCL,
+or on the CPU with gloo under ``--device cpu``; N above the machine's
+cards raises. Under a launcher (``torch.distributed.run``, or the JAX
+package's ``COORDINATOR_ADDRESS``/``NUM_PROCESSES``/``PROCESS_ID``) each
+process joins the launcher's world, a world of one included, and
+``--num_devices`` must equal its size or stay 1. Rank 0 loads the dataset
+first (it may write the ingest cache), then the others; rank 0 alone
+prints the results and writes the artifacts, including the scorer launches
+of its process in ``task_info.log``.
 
 Run as ``python -m molkgnn_torch.cli.entry --dataset_name synthetic_motif``
 (add ``--device cpu`` on a machine without a card).
@@ -46,9 +57,10 @@ def build_parser(gnn_type: str) -> argparse.ArgumentParser:
     t = p.add_argument_group("Trainer")
     t.add_argument("--max_epochs", type=int, default=20)
     t.add_argument("--default_root_dir", type=str, default=".")
+    # Data-parallel ranks (one process a device; see the module doc).
     t.add_argument("--num_devices", type=int, default=1)
-    # none: one device. num_devices > 1, halo and hybrid (the JAX
-    # package's data and model parallelism) are not ported yet, refused.
+    # none: data parallel only. halo and hybrid (the JAX package's model
+    # parallelism) are not ported yet, refused.
     t.add_argument(
         "--model_parallel",
         choices=["none", "halo", "hybrid"],
@@ -189,9 +201,6 @@ def build_parser(gnn_type: str) -> argparse.ArgumentParser:
 
 def unported(args) -> str | None:
     """Why ``args`` asks for what the port does not have yet, or None."""
-    if args.num_devices > 1:
-        return ("--num_devices > 1 (data parallel) is not ported to "
-                "molkgnn_torch yet (ROADMAP A12)")
     if args.model_parallel != "none":
         return (f"--model_parallel {args.model_parallel} is not ported to "
                 "molkgnn_torch yet (ROADMAP A13)")
@@ -360,12 +369,55 @@ def main(argv=None):
             " (shuffle-without-replacement epochs stay on the host path)"
         )
 
+    from molkgnn_torch.parallel.multihost import env_world
+
+    world = env_world()
+    if world is None and args.num_devices > 1:
+        from molkgnn_torch.parallel.launch import spawn
+
+        try:
+            spawn(main, args.num_devices, args=(argv,), device=args.device)
+        except ValueError as e:  # too few cards; raised before any rank
+            raise SystemExit(f"--num_devices {args.num_devices}: {e}")
+        return 0
+    if world is not None and args.num_devices not in (1, world):
+        raise SystemExit(
+            f"--num_devices {args.num_devices} in a launched world of "
+            f"{world} processes; pass {world} or 1")
+
+    from molkgnn_torch.parallel.multihost import initialize
     from molkgnn_torch.serving.predictor import resolve_device
+
+    device = resolve_device(args.device)  # raises for cuda without a card
+    owned = world is not None and initialize(device=device)
+    try:
+        return _run(args, t_start, device, world)
+    finally:
+        if owned:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _run(args, t_start, device, world):
+    """Train, validate or test as ``args`` says, on one device or (``world``
+    not None) on this rank of the joined world."""
+    import torch.distributed as dist
+
+    from molkgnn_torch.ops import support_score as ss
+    from molkgnn_torch.parallel.data_parallel import is_writer, make_mesh
     from molkgnn_torch.training.checkpoint import SUFFIX, load_checkpoint
     from molkgnn_torch.training.trainer import TrainConfig, Trainer
 
-    device = resolve_device(args.device)  # raises for cuda without a card
+    mesh = None if world is None else make_mesh(world, device=device)
+    writer = is_writer()
+    before = ss.launch_counts()
+    # Rank 0 first: the ingest may write its cache, which the others read.
+    if not writer:
+        dist.barrier()
     dataset = load_dataset(args)
+    if mesh is not None and writer:
+        dist.barrier()
     # Balanced batches (kgnn only; the other families ignore the flag, as
     # in the JAX CLI) run under the tight spec of the dealt batches of
     # every split and of the train draw.
@@ -404,11 +456,12 @@ def main(argv=None):
             else None
         ),
     )
-    trainer = Trainer(model, dataset, spec, cfg, device=device)
+    trainer = Trainer(model, dataset, spec, cfg, device=device, mesh=mesh)
+    show = print if writer else (lambda *a, **k: None)
 
     if args.validate:
         results = trainer.evaluate("valid")
-        print(json.dumps({"valid": results}, default=float))
+        show(json.dumps({"valid": results}, default=float))
     elif args.test:
         # Test only: restore the checkpoints of an earlier fit under the
         # same --default_root_dir, then evaluate them.
@@ -423,15 +476,17 @@ def main(argv=None):
                 " to train+test in one run"
             )
         results = trainer.test()
-        print(json.dumps(results, default=float))
+        show(json.dumps(results, default=float))
     else:
         trainer.fit()
         results = trainer.test()
-        print(json.dumps(results, default=float))
+        show(json.dumps(results, default=float))
         if args.gnn_type == "kgnn":
             trainer.save_kernels(os.path.join(log_dir, "kernels"))
         trainer.save_graph_embedding(log_dir)
 
+    if not writer:
+        return 0
     os.makedirs(log_dir, exist_ok=True)
     seconds = time.time() - t_start
     with open(os.path.join(log_dir, "task_info.log"), "a") as f:
@@ -439,6 +494,10 @@ def main(argv=None):
         f.write(f"gnn_type: {args.gnn_type}\n")
         f.write(f"dataset: {args.dataset_name}\n")
         f.write(f"comment: {args.task_comment}\n")
+        f.write(f"ranks: {1 if world is None else world}\n")
+        f.write("scorer_launches: " + ", ".join(
+            f"{w.__name__} {w.launches - n}"
+            for w, n in zip(ss.SCORERS, before)) + "\n")
         f.write(
             f"run_time: {seconds / 3600:.0f}h{(seconds % 3600) / 60:.0f}m"
             f"{seconds % 60:.0f}s ({seconds:.1f}s)\n"

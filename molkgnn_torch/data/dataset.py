@@ -11,7 +11,7 @@ weights, ``len(graphs)`` draws an epoch.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator, List, Sequence
+from typing import Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
 
@@ -23,6 +23,7 @@ from molkgnn_torch.data.synthetic import (
 from molkgnn_torch.graphs.batch import BatchSpec, GraphBatch
 from molkgnn_torch.graphs.molgraph import MolGraph
 from molkgnn_torch.graphs.packed import PackedGraphs
+from molkgnn_torch.parallel.data_parallel import rank_rows
 
 QSAR_DATASET_NAMES = (
     "435008",
@@ -180,7 +181,11 @@ class GraphLoader:
     """Host-side loader of fixed-shape GraphBatches (CPU tensors).
 
     ``seed`` is an int or a ``np.random.Generator`` to draw from. The final
-    partial batch is padded with masked graphs, never dropped. ``collate``
+    partial batch is padded with masked graphs, never dropped. ``shard``
+    (rank, world) of a data-parallel run: every rank draws the same epoch
+    order and packs only its own batches, the ``rank``-th of each group of
+    ``world`` consecutive ones, the trailing partial group dropped
+    (``parallel/data_parallel.py::rank_rows``). ``collate``
     (graphs, spec) -> batch packs another batch family (the point families'
     ``batch_points``, ChIRoNet's ``batch_chiro``); by default kgnn batches
     come from the flat-packed dataset.
@@ -195,6 +200,7 @@ class GraphLoader:
         oversample: bool = False,
         seed=0,
         collate=None,
+        shard: Tuple[int, int] = (0, 1),
     ):
         self.graphs = list(graphs)
         self.spec = spec
@@ -203,18 +209,23 @@ class GraphLoader:
         self.oversample = oversample
         self.rng = np.random.default_rng(seed)
         self.collate = collate
+        self.shard = shard
         self._packed = (PackedGraphs.from_graphs(self.graphs)
                         if collate is None else None)
         self._labels = np.array([g.y for g in self.graphs])
 
+    def _starts(self, n: int):
+        rank, world = self.shard
+        return rank_rows(range(0, n, self.batch_size), world, rank)
+
     def __len__(self) -> int:
-        return -(-len(self.graphs) // self.batch_size)
+        return len(self._starts(len(self.graphs)))
 
     def __iter__(self) -> Iterator[GraphBatch]:
         order = epoch_order(
             self.rng, self._labels, self.oversample, self.shuffle
         )
-        for start in range(0, len(order), self.batch_size):
+        for start in self._starts(len(order)):
             idx = order[start : start + self.batch_size]
             if self._packed is None:
                 yield self.collate([self.graphs[i] for i in idx], self.spec)

@@ -28,6 +28,13 @@ per layer as an eager forward does. A failed capture raises; nothing falls
 back to eager on the card.
 
 On the CPU the same loop runs eagerly, one forward per block.
+
+With a data mesh (``mesh=``: data-parallel evaluation and screening) each
+rank scores its share of the blocks, ``rank, rank + world, ...`` of the
+blocks padded with all ``-1`` blocks to a multiple of the world size,
+through its own capture and replays, and the ranks' predictions are
+gathered back in block order (``parallel/data_parallel.py::score_blocks``):
+every rank returns the whole ``[nblocks, B]``.
 """
 
 from __future__ import annotations
@@ -62,11 +69,20 @@ class BlockScorer:
     def _forward(self, data, ids: torch.Tensor):
         return self.model(self._gather(data, ids, self.spec))[0]
 
-    @torch.inference_mode()
-    def __call__(self, data, idm: torch.Tensor):
+    def __call__(self, data, idm: torch.Tensor, mesh=None):
         """[nblocks, B] predictions of the graphs ``idm`` [nblocks, B]
         (int32 on the dataset's device, -1 padded; padded entries score
-        whatever the model gives a masked graph), left on the device."""
+        whatever the model gives a masked graph), left on the device;
+        across ``mesh``'s ranks when one is given (see the module doc)."""
+        if mesh is not None:
+            from molkgnn_torch.parallel.data_parallel import score_blocks
+
+            return score_blocks(mesh, idm,
+                                lambda rows: self._score(data, rows))
+        return self._score(data, idm)
+
+    @torch.inference_mode()
+    def _score(self, data, idm: torch.Tensor):
         if idm.device.type != "cuda":
             return torch.stack([self._forward(data, ids) for ids in idm])
         key = (_tensors(data), idm.shape[1])

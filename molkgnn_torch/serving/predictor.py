@@ -19,8 +19,10 @@ ChIRoNet's internal-coordinate graphs (``ChiroBatchSpec``):
     program (the scorer kernel a registered op in it) with the spec and
     its family; loading needs no model code.
 
-A spec of another type raises. Data-parallel screening (``mesh=``) is
-ROADMAP A12.
+A spec of another type raises. ``screen_library(mesh=)`` screens across
+the ranks of a data mesh (``parallel/data_parallel.py::make_mesh``): each
+rank scores its share of every slab's blocks, and every rank returns the
+whole library's scores.
 
 On the card, float32 products run in full float32: TF32 is switched off
 for matrix products and cuDNN, because the permutation argmax of the score
@@ -277,13 +279,18 @@ class Predictor:
         of its first block); see ``serving/blocks.py``. The graph and the
         slab's device tensors are released when the call returns.
 
-        ``mesh`` (data-parallel screening) is not ported yet (ROADMAP A12).
+        ``mesh``: data-parallel screening, every rank calling with the
+        same library. Each rank packs each slab onto its device (the
+        dataset replicated), scores blocks ``rank, rank + world, ...`` of
+        the slab's blocks padded with all ``-1`` blocks to a multiple of
+        the world size, and gathers the ranks' scores back in block order
+        (``serving/blocks.py``): the scores are the single-device path's,
+        on every rank.
         """
-        if mesh is not None:
-            raise NotImplementedError(
-                "screen_library(mesh=...): data-parallel screening is not "
-                "ported to molkgnn_torch yet (ROADMAP A12)"
-            )
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(
+                f"a {mesh.device_type} mesh for a Predictor on "
+                f"{self.device.type}")
         from molkgnn_torch.graphs.device_pack import pad_ids
         from molkgnn_torch.serving.blocks import BlockScorer
 
@@ -321,7 +328,7 @@ class Predictor:
             data = build(chunk, self.device)
             t2 = time.perf_counter()
             preds = blocks(
-                data, torch.as_tensor(idm, device=self.device)
+                data, torch.as_tensor(idm, device=self.device), mesh=mesh,
             ).cpu().numpy().reshape(-1)
             outs.append(preds[(idm >= 0).reshape(-1)])
             self.screen_slabs.append({

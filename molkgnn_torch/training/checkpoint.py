@@ -3,7 +3,8 @@
 ``save_checkpoint``/``load_checkpoint`` write and read the port's own
 checkpoint files: ``torch.save`` of a payload of tensors and plain values
 (moved to the CPU), at ``path + ".pt"``, read back with
-``weights_only=True``.
+``weights_only=True``; in a data-parallel world rank 0 writes and every
+rank reads.
 
 ``from_torch_state_dict``/``load_torch_checkpoint`` import a checkpoint of
 the reference PyTorch implementation (a PL ``.ckpt`` or a raw
@@ -52,6 +53,8 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
+from molkgnn_torch.parallel.data_parallel import is_writer
+
 SUFFIX = ".pt"
 
 
@@ -66,7 +69,10 @@ def _to_cpu(obj: Any) -> Any:
 def save_checkpoint(path: str, payload: Dict[str, Any]) -> None:
     """Write ``payload`` (tensors on any device, dicts, plain values) to
     ``path + ".pt"``, through a temporary file so that a reader never sees
-    half a file."""
+    half a file. Under ``torch.distributed`` (one process a rank, the state
+    replicated) rank 0 alone writes; every rank may load."""
+    if not is_writer():
+        return
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = f"{path}{SUFFIX}.tmp{os.getpid()}"
     torch.save(_to_cpu(payload), tmp)

@@ -1,6 +1,7 @@
-"""Training harness on one device: train step, epoch loop, checkpoints.
+"""Training harness: train step, epoch loop, checkpoints, data parallel.
 
-Port of ``molkgnn_tpu/training/trainer.py`` (its single-device paths):
+Port of ``molkgnn_tpu/training/trainer.py`` (its single-device and
+data-parallel paths):
 
   * one optimizer step per batch: train-mode forward (BatchNorm
     statistics update, dropout from the Trainer's generator), loss,
@@ -49,7 +50,29 @@ Port of ``molkgnn_tpu/training/trainer.py`` (its single-device paths):
     writes ``test_result.log`` and ``test_sample_scores_{tag}.log``;
   * full-state ``save_state``/``load_state``, and with ``autosave_path``
     an autosave after every epoch, resume, and a SIGTERM/SIGINT handler
-    that finishes the epoch, autosaves and returns.
+    that finishes the epoch, autosaves and returns;
+  * data parallel with ``mesh`` (``parallel/data_parallel.py::make_mesh``,
+    one process a device, every rank building the same Trainer): rank 0's
+    weights and statistics are broadcast once, then every rank runs the
+    whole train step on its own sub-batch and, between the gradients'
+    fill and the finite check, one all-reduce averages the gradients, the
+    BatchNorm statistics after the step's own update and the loss
+    (``GradSync``; inside the captured step on the card, so NCCL; gloo's
+    host-side collectives cannot be captured and raise with
+    ``scan_steps > 1`` on the card). The global batch is world x B. Every
+    rank draws the same epoch order and takes its rank's batch of each
+    group of ``world`` consecutive batches, the trailing partial group
+    dropped, on the device-data path (balanced batches are dealt first)
+    and the host loader's alike; ``fit`` raises when an epoch has fewer
+    batches than ranks. With ``device_sampling`` each rank draws from a
+    generator seeded from ``(seed, SAMPLE_SALT, rank)``,
+    ``max(ceil(n_train / B) // world, 1)`` steps an epoch. Evaluation on
+    the device-data path splits the id blocks across the ranks
+    (``serving/blocks.py``) and every rank gets every prediction; the
+    host-loader path evaluates the whole split on each rank. Rank 0 alone
+    writes files (logs, checkpoints, autosaves, test results, kernels,
+    embeddings); every rank loads. The SIGTERM stop flag is all-reduced
+    once an epoch, so every rank stops after the same epoch.
 
 The step counter ``step`` counts every train step. ``updates`` counts the
 updates applied: Adam's count and the schedule's position. With
@@ -59,7 +82,7 @@ state (optax's step counts included): only ``step`` advances. BatchNorm
 statistics are taken from that step all the same, as there.
 
 The Trainer runs on the card unless ``device="cpu"`` is passed, and raises
-without CUDA.
+without CUDA. A mesh is of the Trainer's device type.
 
 Loading state (``load_state``, checkpoints) copies into the existing
 parameters, buffers, optimizer tensors and generators in place, so a
@@ -77,6 +100,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from molkgnn_torch.data.dataset import (
@@ -102,6 +126,15 @@ from molkgnn_torch.ops.support_score import (
     add_launches,
     launch_counts,
     take_launches,
+)
+from molkgnn_torch.parallel.data_parallel import (
+    AXIS,
+    GradSync,
+    batch_norm_buffers,
+    is_writer,
+    mesh_rank,
+    rank_rows,
+    sampler_seed,
 )
 from molkgnn_torch.serving.blocks import BlockScorer
 from molkgnn_torch.serving.predictor import (
@@ -200,8 +233,13 @@ class Trainer:
         config: TrainConfig,
         device: Optional[str | torch.device] = None,
         monitor=None,
+        mesh=None,
     ):
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(
+                f"a {mesh.device_type} mesh for a Trainer on "
+                f"{self.device.type}")
         if self.device.type == "cuda":
             # Full fp32 products: the permutation argmax would move with
             # TF32's lost digits.
@@ -212,6 +250,8 @@ class Trainer:
         self.spec = spec
         self.config = config
         self.monitor = monitor
+        self.mesh = mesh
+        self.world, self.rank = (1, 0) if mesh is None else mesh_rank(mesh)
         self.loss_fn = LOSSES[dataset.loss_name]
         self.history: List[Dict[str, float]] = []
         self.best: Dict[str, float] = {}
@@ -242,10 +282,8 @@ class Trainer:
                 m.generator = self.dropout_rng
         self.id_rng = np.random.default_rng(config.seed)
         self.sample_rng = torch.Generator(device=self.device)
-        self.sample_rng.manual_seed(int(
-            np.random.SeedSequence([config.seed, SAMPLE_SALT])
-            .generate_state(1, np.uint64)[0]
-        ))
+        self.sample_rng.manual_seed(sampler_seed(
+            config.seed, SAMPLE_SALT, None if mesh is None else self.rank))
         self._train_ids = train_ids
         self._train_labels = np.array([dataset.graphs[i].y for i in train_ids])
         # The spec's batch family: the host loader's collate (None: kgnn's
@@ -299,6 +337,19 @@ class Trainer:
         self._graph_warm = 0
         # Evaluation over id blocks of the device-resident dataset.
         self._blocks = BlockScorer(self.model, spec)
+        # The data-parallel step's collective; rank 0's weights and
+        # statistics replicated.
+        self._sync = None
+        if mesh is not None:
+            if (config.scan_steps > 1 and self.device.type == "cuda"
+                    and dist.get_backend(mesh.get_group(AXIS)) != "nccl"):
+                raise ValueError(
+                    "scan_steps > 1 on the card needs an NCCL mesh: a "
+                    "gloo collective runs on the host and cannot be "
+                    "captured in a CUDA graph")
+            buffers = batch_norm_buffers(self.model)
+            self._sync = GradSync(mesh, self._params, buffers)
+            self._sync.broadcast(self._params + buffers)
 
     @property
     def updates(self) -> int:
@@ -324,12 +375,18 @@ class Trainer:
         self.optimizer.step(self._lr(self.optimizer.count), ok)
 
     def _step(self, batch) -> torch.Tensor:
-        """One train step; returns the loss, left on the device."""
+        """One train step; returns the loss (under a mesh the mean over the
+        ranks, the gradients and statistics averaged first), left on the
+        device."""
         loss = self._loss(batch)
         loss.backward()
+        loss = loss.detach()
+        if self._sync is not None:
+            fill_missing_grads(self._params)
+            loss = self._sync(loss)
         self._update()
         self.step += 1
-        return loss.detach()
+        return loss
 
     def _step_ids(self, ids: np.ndarray) -> torch.Tensor:
         """One train step on the batch of graph ids [B] (-1 padded),
@@ -363,7 +420,14 @@ class Trainer:
             graph.register_generator_state(gen)
         step = self.step
         before = launch_counts()
-        with torch.cuda.graph(graph):
+        # Under a mesh the step records an NCCL collective: the warm-up's
+        # works are let finish first, and the capture checks this thread's
+        # calls only (the process group's watchdog thread polls events).
+        mode = "global"
+        if self.mesh is not None:
+            torch.cuda.synchronize(self.device)
+            mode = "thread_local"
+        with torch.cuda.graph(graph, capture_error_mode=mode):
             self._graph_loss = self._device_step()
         # The capture runs nothing: the steps and the scorer launches it
         # recorded are counted at each replay instead.
@@ -405,10 +469,13 @@ class Trainer:
         graphed = k > 1 and self.device.type == "cuda"
         if self._sampler is not None:
             steps = -(-len(self._train_ids) // cfg.batch_size)
+            if self.mesh is not None:
+                steps = max(steps // self.world, 1)
             if graphed:
                 return [self._graph_step() for _ in range(steps)]
             return [self._device_step() for _ in range(steps)]
-        blocks = np.stack(list(self._epoch_id_batches()))
+        blocks = rank_rows(np.stack(list(self._epoch_id_batches())),
+                           self.world, self.rank)
         if not graphed:
             return [self._step_ids(ids) for ids in blocks]
         losses = []
@@ -482,7 +549,8 @@ class Trainer:
         idm, posm = self._id_blocks(ids)
         self.model.eval()
         preds = self._blocks(self._device_data,
-                             torch.as_tensor(idm, device=self.device))
+                             torch.as_tensor(idm, device=self.device),
+                             mesh=self.mesh)
         flat = preds.cpu().numpy().reshape(-1)
         true = np.array([self.dataset.graphs[i].y for i in ids], np.float32)
         return true, self._in_order(flat, posm, len(ids))
@@ -557,7 +625,16 @@ class Trainer:
 
     def _fit_loop(self, start_epoch, stop) -> List[Dict[str, float]]:
         cfg = self.config
-        os.makedirs(cfg.log_dir, exist_ok=True)
+        batches = -(-len(self._train_ids) // cfg.batch_size)
+        if self.world > 1 and batches < self.world:
+            raise ValueError(
+                "data-parallel fit() needs at least one id-batch per device:"
+                f" ceil(n_train/batch_size) = {batches} < {self.world}"
+                " devices. Shrink the mesh or the batch size."
+            )
+        writer = is_writer()
+        if writer:
+            os.makedirs(cfg.log_dir, exist_ok=True)
         loader = None
         if self._device_data is None:
             loader = GraphLoader(
@@ -568,6 +645,7 @@ class Trainer:
                 oversample=cfg.oversample,
                 seed=self.id_rng,
                 collate=self._collate,
+                shard=(self.rank, self.world),
             )
         for epoch in range(start_epoch, cfg.max_epochs):
             t0 = time.time()
@@ -588,6 +666,7 @@ class Trainer:
             results = self.evaluate("valid")
             if cfg.record_valid_pred:
                 true_y, pred_y = self._predictions("valid")
+            if cfg.record_valid_pred and writer:
                 pred_dir = os.path.join(cfg.log_dir, "valid_predictions")
                 os.makedirs(pred_dir, exist_ok=True)
                 with open(os.path.join(pred_dir, f"epoch_{epoch}"), "w") as f:
@@ -605,10 +684,10 @@ class Trainer:
             results["train_readback_time_s"] = t_readback - t_dispatch
             results["eval_time_s"] = time.time() - t_readback
             self.history.append(results)
-            if self.monitor is not None:
+            if self.monitor is not None and writer:
                 self.monitor.on_epoch_end(epoch, results)
             self._update_checkpoints(results)
-            if cfg.progress:
+            if cfg.progress and writer:
                 shown = {
                     k: round(v, 4)
                     for k, v in results.items()
@@ -617,10 +696,13 @@ class Trainer:
                 print(f"epoch {epoch}: {shown}", flush=True)
             if cfg.autosave_path:
                 self.save_state(cfg.autosave_path)
-                with open(cfg.autosave_path + ".history.json", "w") as f:
-                    json.dump(self.history, f)
+                if writer:
+                    with open(cfg.autosave_path + ".history.json", "w") as f:
+                        json.dump(self.history, f)
+                if self._sync is not None:  # every rank stops together
+                    stop["flag"] = self._sync.any(stop["flag"])
             if stop["flag"]:
-                if cfg.progress:
+                if cfg.progress and writer:
                     print(
                         f"fit: stop signal received; autosaved after "
                         f"epoch {epoch}, returning early",
@@ -628,8 +710,9 @@ class Trainer:
                     )
                 break
         self._save_checkpoint("last")
-        with open(os.path.join(cfg.log_dir, "history.json"), "w") as f:
-            json.dump(self.history, f, indent=1)
+        if writer:
+            with open(os.path.join(cfg.log_dir, "history.json"), "w") as f:
+                json.dump(self.history, f, indent=1)
         return self.history
 
     # ------------------------------------------------------------------
@@ -649,7 +732,8 @@ class Trainer:
 
     def _save_checkpoint(self, tag: str):
         """Keep the weights and BatchNorm statistics under ``tag`` (on the
-        device), and write them to ``checkpoint_dir/{tag}.pt`` if set."""
+        device), and write them to ``checkpoint_dir/{tag}.pt`` if set (rank
+        0 alone under a mesh: ``save_checkpoint``)."""
         payload = {
             "step": self.step,
             "model": {
@@ -670,12 +754,17 @@ class Trainer:
     def save_state(self, path: str) -> None:
         """Full state for resume, at ``path + ".state.pt"``: weights and
         statistics, optimizer (its update count included), the three random
-        streams, step count, epochs done, best-metric table."""
+        streams, step count, epochs done, best-metric table. Under a mesh
+        every rank calls it: the device samplers' states of all ranks are
+        gathered (a list by rank), and rank 0 writes."""
+        sample_rng = self.sample_rng.get_state()
+        if self._sync is not None:
+            sample_rng = self._sync.gather_objects(sample_rng)
         save_checkpoint(path + STATE, {
             "model": self.model.state_dict(),
             "optimizer": self.optimizer.state_dict(),
             "dropout_rng": self.dropout_rng.get_state(),
-            "sample_rng": self.sample_rng.get_state(),
+            "sample_rng": sample_rng,
             "id_rng": self.id_rng.bit_generator.state,
             "step": self.step,
             "epochs_done": len(self.history),
@@ -683,12 +772,22 @@ class Trainer:
         })
 
     def load_state(self, path: str) -> None:
-        """Restore ``save_state(path)``, in place (see the module doc)."""
+        """Restore ``save_state(path)``, in place (see the module doc); a
+        state saved under a mesh restores on a mesh of the same size, each
+        rank its own sampler's state."""
         ck = load_checkpoint(path + STATE)
+        sample_rng = ck["sample_rng"]
+        saved = len(sample_rng) if isinstance(sample_rng, list) else None
+        if saved != (None if self._sync is None else self.world):
+            raise ValueError(
+                f"{path}: a state saved on {saved or 'no'} mesh ranks, "
+                f"loaded on {self.world if self._sync else 'no'}")
+        if saved is not None:
+            sample_rng = sample_rng[self.rank]
         self.model.load_state_dict(ck["model"])
         self.optimizer.load_state_dict(ck["optimizer"])
         self.dropout_rng.set_state(ck["dropout_rng"])
-        self.sample_rng.set_state(ck["sample_rng"])
+        self.sample_rng.set_state(sample_rng)
         self.id_rng.bit_generator.state = ck["id_rng"]
         self.step = ck["step"]
         self.best = {k: float(v) for k, v in ck["best"].items()}
@@ -697,7 +796,9 @@ class Trainer:
         """Write the first layer's learned kernels to ``kernels.npz``, keyed
         ``kernelconv{d}/{name}`` as the JAX package keys them; a fixed
         set's parameters (its score weights) under
-        ``fixed_kernelconv{d}/{name}``."""
+        ``fixed_kernelconv{d}/{name}``. Rank 0 alone writes."""
+        if not is_writer():
+            return
         layers = getattr(getattr(self.model.gnn_model, "gnn", None),
                          "layers", None)
         if not layers:
@@ -718,7 +819,9 @@ class Trainer:
     def save_graph_embedding(self, out_dir: str, part: str = "test"):
         """Write the split's graph embeddings and smiles, in split order
         (balanced mode: batches dealt and checked as in evaluation, then
-        put back in order)."""
+        put back in order). Rank 0 alone computes and writes them."""
+        if not is_writer():
+            return
         os.makedirs(out_dir, exist_ok=True)
         graphs = self.dataset.subset(part)
         self.model.eval()
@@ -750,7 +853,8 @@ class Trainer:
 
     def test(self) -> Dict[str, Dict[str, float]]:
         """Evaluate ``last`` and each best checkpoint on the test split;
-        write ``test_sample_scores_{tag}.log`` and ``test_result.log``."""
+        write ``test_sample_scores_{tag}.log`` and ``test_result.log``.
+        Under a mesh every rank evaluates and rank 0 writes."""
         cfg = self.config
         out: Dict[str, Dict[str, float]] = {}
         tags = [
@@ -761,16 +865,22 @@ class Trainer:
         current = {
             k: v.detach().clone() for k, v in self.model.state_dict().items()
         }
-        os.makedirs(cfg.log_dir, exist_ok=True)
+        writer = is_writer()
+        if writer:
+            os.makedirs(cfg.log_dir, exist_ok=True)
         for tag in tags:
             self.load_checkpoint_tag(tag)
             true_y, pred_y = self._predictions("test")
             out[tag] = compute_metrics(self.dataset.metrics, true_y, pred_y)
+            if not writer:
+                continue
             path = os.path.join(cfg.log_dir, f"test_sample_scores_{tag}.log")
             with open(path, "w") as f:
                 for p, t in zip(pred_y, true_y):
                     f.write(f"{p},{t}\n")
         self.model.load_state_dict(current)
+        if not writer:
+            return out
         with open(os.path.join(cfg.log_dir, "test_result.log"), "w") as f:
             for tag, metrics in out.items():
                 f.write(f"[{tag}]\n")

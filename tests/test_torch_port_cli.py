@@ -216,10 +216,10 @@ def test_cli_runs_chironet(flags, tmp_path, dataset_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--num_devices", "2"], "A12"),
+    (["--model_parallel", "halo", "--num_devices", "2"], "A13"),
     (["--model_parallel", "halo"], "A13"),
     (["--model_parallel", "hybrid", "--num_devices", "1"], "A13"),
-    (["--balanced_batches", "--num_devices", "2"], "A12"),
+    (["--balanced_batches", "--model_parallel", "hybrid"], "A13"),
 ])
 def test_cli_refuses_what_is_not_ported(flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):

@@ -286,6 +286,7 @@ def _small_run(tmp_path, sub, **kw):
     cfg = dict(batch_size=32, max_epochs=1, warmup_iterations=4,
                tot_iterations=40, progress=False,
                log_dir=str(tmp_path / sub / "logs"))
+    mesh = kw.pop("mesh", None)
     cfg.update(kw)
     if cfg.get("balanced_batches"):
         from molkgnn_torch.graphs.balance import spec_for_dataset
@@ -293,7 +294,7 @@ def _small_run(tmp_path, sub, **kw):
         spec = spec_for_dataset(ds, 32)
     else:
         spec = spec_for_graphs(ds.graphs, 32)
-    return Trainer(model, ds, spec, TrainConfig(**cfg))
+    return Trainer(model, ds, spec, TrainConfig(**cfg), mesh=mesh)
 
 
 def _max_param_diff(a, b):
@@ -931,3 +932,114 @@ def test_cuda_balanced_graphed_steps_equal_eager(tmp_path):
     np.testing.assert_allclose(graphed._predict_ids(ids)[1],
                                cover._predict_ids(ids)[1], rtol=1e-5,
                                atol=1e-5)
+
+
+# ------------------------------------------------------ data parallel
+@pytest.mark.cuda
+def test_cuda_dp_world_one_replayed_fit_equals_single_device(tmp_path):
+    """A world-1 NCCL mesh with scan_steps=8 (the all-reduce inside the
+    captured step) against the single-device Trainer: the same ids, so
+    losses within 1e-5 relative, parameters within 1e-5, the same scorer
+    launches; then DP evaluation against one device within 1e-5."""
+    _needs_card()
+    import torch.distributed as dist
+
+    from molkgnn_torch.parallel.data_parallel import make_mesh
+
+    mesh = make_mesh(1)
+    try:
+        assert dist.get_backend() == "nccl"
+        runs = {}
+        for name, m in (("single", None), ("dp", mesh)):
+            t = _small_run(tmp_path, name, scan_steps=8, mesh=m)
+            before = ss.grouped_support_score.launches
+            t.fit()
+            runs[name] = (t, ss.grouped_support_score.launches - before)
+        single, dp = runs["single"][0], runs["dp"][0]
+        assert dp._graph is not None and dp.step == single.step == 8
+        np.testing.assert_allclose(dp.step_losses, single.step_losses,
+                                   rtol=1e-5)
+        assert _max_param_diff(single, dp) <= 1e-5
+        assert runs["dp"][1] == runs["single"][1] == 2 * 8 + 2
+        dp.model.load_state_dict(single.model.state_dict())
+        ids = single.dataset.split["valid"]
+        np.testing.assert_allclose(dp._predict_ids(ids)[1],
+                                   single._predict_ids(ids)[1],
+                                   rtol=1e-5, atol=1e-5)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_num_devices_beyond_the_cards_is_refused():
+    """--num_devices above the machine's cards raises, naming both."""
+    _needs_card()
+    from molkgnn_torch.cli import entry
+
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(SystemExit, match=(
+            f"{n} ranks need {n} CUDA devices.*has {n - 1}")):
+        entry.main(["--num_devices", str(n), "--dataset_name", "synthetic"])
+
+
+def _gloo_rank(path):
+    """A rank of a gloo world of 2 on one card: 2 eager DP steps of
+    ``_small_run`` on its own ids; rank 0 saves its weights."""
+    import pathlib
+
+    import torch.distributed as dist
+
+    from molkgnn_torch.parallel.data_parallel import make_mesh
+
+    path = pathlib.Path(path)
+    mesh = make_mesh(2, backend="gloo")
+    rank = dist.get_rank()
+    t = _small_run(path, f"rank{rank}", mesh=mesh)
+    for ids in np.load(path / "ids.npy")[:, rank]:
+        t._step_ids(ids)
+    if rank == 0:
+        torch.save({k: v.cpu() for k, v in t.model.state_dict().items()},
+                   path / "rank0.pt")
+
+
+@pytest.mark.cuda
+def test_cuda_two_gloo_ranks_on_one_card_equal_a_plain_dp_step(tmp_path):
+    """Two ranks sharing the card over gloo (CUDA tensors), 2 eager steps,
+    against one process that averages both sub-batches' gradients and
+    BatchNorm statistics and steps: parameters within 1e-5."""
+    _needs_card()
+    from molkgnn_torch.parallel import launch
+    from molkgnn_torch.parallel.data_parallel import batch_norm_buffers
+    from molkgnn_torch.training.optim import fill_missing_grads
+
+    rng = np.random.default_rng(2)
+    ids = rng.choice(256, (2, 2, 32)).astype(np.int32)
+    np.save(tmp_path / "ids.npy", ids)
+    launch.spawn(_gloo_rank, 2, args=(str(tmp_path),), backend="gloo")
+    plain = _small_run(tmp_path, "plain")
+    bn = batch_norm_buffers(plain.model)
+    for step in range(2):
+        start, masks = [b.clone() for b in bn], plain.dropout_rng.get_state()
+        grads, stats = [], []
+        for r in range(2):
+            for b, v in zip(bn, start):
+                b.copy_(v)
+            plain.dropout_rng.set_state(masks)
+            batch = plain._gather(plain._device_data,
+                                  torch.as_tensor(ids[step, r]).cuda(),
+                                  plain.spec)
+            plain._loss(batch).backward()
+            fill_missing_grads(plain._params)
+            grads.append([p.grad.clone() for p in plain._params])
+            stats.append([b.clone() for b in bn])
+        with torch.no_grad():
+            for p, g0, g1 in zip(plain._params, *grads):
+                p.grad.copy_((g0 + g1) / 2)
+            for b, s0, s1 in zip(bn, *stats):
+                b.copy_((s0 + s1) / 2)
+        plain._update()
+    got = torch.load(tmp_path / "rank0.pt")
+    want = plain.model.state_dict()
+    assert set(got) == set(want)
+    for k, v in got.items():
+        torch.testing.assert_close(v.cuda(), want[k], rtol=1e-5, atol=1e-5)

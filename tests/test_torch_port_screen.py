@@ -13,6 +13,7 @@ scorer equals the eager loop it replaced, bit for bit.
 """
 
 import functools
+import types
 
 import jax
 import numpy as np
@@ -133,8 +134,10 @@ def _refusal(case, setup):
         return ValueError, "exceeds the spec", lambda: pred.screen_library(
             sorted(graphs, key=lambda g: -g.num_nodes))
     if case == "mesh":
-        return NotImplementedError, "A12", lambda: _port(
-            v, spec).screen_library(graphs, mesh=object())
+        # A mesh of another device type than the Predictor's.
+        cuda_mesh = types.SimpleNamespace(device_type="cuda")
+        return ValueError, "a cuda mesh for a Predictor on cpu", lambda: (
+            _port(v, spec).screen_library(graphs, mesh=cuda_mesh))
     # The JAX package's ChiroBatchSpec is not a spec of the port.
     chiro = ChiroBatchSpec(num_graphs=8, num_nodes=64, num_edges=256,
                            num_dist=64, num_angles=64, num_dihedrals=64,
@@ -147,9 +150,9 @@ def _refusal(case, setup):
 @pytest.mark.parametrize("case", ["overflow", "mesh", "point_spec"])
 def test_screen_library_refusals(setup, case):
     """An overflowing batch raises before any scoring (the device gather
-    would truncate it); data-parallel screening is not ported and says
-    which ROADMAP item holds it; a spec of a type the port does not
-    register raises."""
+    would truncate it); a data-parallel mesh of another device type than
+    the Predictor's raises; a spec of a type the port does not register
+    raises."""
     err, match, call = _refusal(case, setup)
     with pytest.raises(err, match=match):
         call()

@@ -155,6 +155,11 @@ import molkgnn_torch.experiments.sweep
 import molkgnn_torch.experiments.aggregate
 import molkgnn_torch.experiments.cli
 import molkgnn_torch.tools.replay_step
+import molkgnn_torch.tools.screen_rate
+import molkgnn_torch.parallel
+import molkgnn_torch.parallel.data_parallel
+import molkgnn_torch.parallel.multihost
+import molkgnn_torch.parallel.launch
 import chip_smoke
 loaded = sorted(m for m in sys.modules if banned(m))
 assert not loaded, loaded
