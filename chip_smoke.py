@@ -195,6 +195,39 @@ Phases, in order; any failure exits non-zero and prints no result line:
               --test on its root gives its test predictions within 1e-4;
               --num_devices one above the cards (2 on a one-card machine)
               exits naming both numbers.
+ 12. model parallel (molkgnn_torch/parallel/halo.py, hybrid.py,
+              edge_partition.py on torch.distributed), the flagship at
+              batch 1024 on phase 10's 8192 tie-free molecules: (a) one
+              NCCL rank, model_parallel="halo" with device sampling and
+              scan_steps=16, the exchanges captured inside the step: its
+              first 3 steps against the single-device device-sampling
+              Trainer from the same weights and seed (losses and parameters
+              within 1e-5), an epoch counted (4 launches a step), train
+              graphs/s replayed beside the single-device replay in turns,
+              the replays' CUDA events, idle share and top kernels; the
+              host-fed halo epoch (graphs/s, counted) and the host
+              partitioner's seconds a batch at 1 and 4 shards, with
+              halo_stats at 4. (b) Four gloo ranks sharing the card, one
+              spawn: halo at 4 shards on batches of 1024 against one
+              device, within 1e-5: the eval forward; the first step's
+              gradients (norm-wise relative); the 3 updates against one
+              device's optimizer fed the ranks' gradients; against one
+              device's own steps the parameters after the first and the
+              BatchNorm statistics after 3; the later steps' gradients at
+              the ranks' own state before each within 1e-3 (a trained
+              model's near-tied permutation argmax may flip); the 3 steps'
+              parameters against one device's own steps printed (Adam
+              divides a gradient element of the order of its eps by
+              itself); a 2x2 hybrid step against one device's step on the
+              undivided 2048 graphs, and the edge-partition forward; rank
+              0's launches counted, its ms a step and a gloo exchange's
+              ms. (c) molkgnn_torch.cli.entry
+              --model_parallel halo under torch.distributed.run
+              --nproc_per_node 1 on phase 6's SDF pair (--device_sampling
+              --scan_steps 16, 1 epoch): artifacts, finite metrics, the
+              launches of its task_info.log = 4 x (steps + evaluation
+              batches). (d) --model_parallel hybrid --num_devices 2 on a
+              one-card machine exits naming 2 and 1.
 
 The last lines are the records of the phases' numbers, the kernel record
 ({"kernels": [...]}), the card's name and power limit, and
@@ -258,6 +291,9 @@ INACTIVE_SMILES = [
 CHIRO_SEEDS = 8
 # Phase 10(b): fixed (designed) kernels per degree at layer 0.
 FIXED_KERNELS = (4, 6, 8, 10)
+# Phase 12(b): the schedule's length for the hybrid step and one device's
+# step at twice the batch, whose derived lengths would differ.
+MP_ITERATIONS = 1000
 # Phase 9(d)'s second model: chiral message passing with softmax c.
 CHIRO_CMP = {"chiral_message_passing": True, "c_normalization": "softmax"}
 # The CLI epoch's evaluation at AID 1798's full counts while it ran eager,
@@ -3199,6 +3235,385 @@ class Smoke:
                                  "test": tested, "retest_gap": pred_gap,
                                  "refused": message}
 
+    # ------------------------------------------------------------ phase 12
+    def phase_mp(self, tmp):
+        """Model parallelism on torch.distributed (see the module doc): (a)
+        one NCCL rank, halo, replayed; (b) four gloo ranks sharing the
+        card; (c) the CLI under torch.distributed.run; (d) the hybrid
+        refusal. Each main path counts the scorer's launches from 0."""
+        import torch.distributed as dist
+
+        from molkgnn_torch.data.dataset import make_tie_free_dataset
+
+        t_phase = time.perf_counter()
+        self.mp_record, self.mp_launches = {}, {}
+        ds = getattr(self, "tie_free_data", None) or make_tie_free_dataset(
+            NUM_MOLECULES, NUM_MOLECULES * 3 // 4, seed=SEED)
+        try:
+            self.mp_world_one(ds)
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+        self.mp_four_ranks(ds, tmp)
+        self.mp_cli(tmp)
+        secs = time.perf_counter() - t_phase
+        self.mp_record["seconds"] = secs
+        log(f"  phase 12 took {secs:.1f} s")
+
+    def mp_trainer(self, ds, mesh, batch=BATCH, **kw):
+        """The flagship (dropout 0) Trainer of phase 12 at ``batch``."""
+        from molkgnn_torch.graphs.batch import spec_for_graphs
+        from molkgnn_torch.training.trainer import TrainConfig, Trainer
+
+        model = self.flagship(4, True, seed=SEED + 12, dropout=0.0)
+        return Trainer(model, ds, spec_for_graphs(ds.graphs, batch),
+                       TrainConfig(batch_size=batch, progress=False, **kw),
+                       mesh=mesh)
+
+    def mp_world_one(self, ds):
+        """(a) of phase 12: halo on one NCCL rank, replayed, beside the
+        single-device Trainer; the host-fed halo epoch and its
+        partitioner."""
+        import numpy as np
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        from molkgnn_torch.data.dataset import GraphLoader
+        from molkgnn_torch.parallel.data_parallel import make_mesh
+        from molkgnn_torch.parallel.halo import halo_stats, partition_halo
+
+        torch = self.torch
+        mesh = make_mesh(1)
+        single = self.mp_trainer(ds, None, scan_steps=16,
+                                 device_sampling=True)
+        halo = self.mp_trainer(ds, mesh, scan_steps=16, device_sampling=True,
+                               model_parallel="halo")
+        losses = {"single": [], "halo": []}
+        for _ in range(3):  # 2 warm-up steps, then the capture's replay
+            losses["single"].append(float(single._graph_step()))
+            losses["halo"].append(float(halo._graph_step()))
+        if halo._graph is None:
+            raise AssertionError("the world-1 halo step was not captured")
+        rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(losses["halo"], losses["single"]))
+        sd = single.model.state_dict()
+        diff = max((v - sd[k]).abs().max().item()
+                   for k, v in halo.model.state_dict().items())
+        log(f"  world-1 NCCL halo (device sampling, the exchanges captured "
+            f"in the step) against one device, the first 3 steps of the "
+            f"same stream: losses {losses['halo']} / {losses['single']}, "
+            f"max relative difference {rel:.3e}, max parameter difference "
+            f"{diff:.3e}")
+        if rel > 1e-5 or diff > 1e-5:
+            raise AssertionError("world-1 halo and one device differ by "
+                                 "> 1e-5")
+        reset_launches()  # the main path, counted: an epoch of halo
+        steps = halo._epoch_steps()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        self.mp_launches["mp_world1"] = counts
+        if counts != {"grouped_support_score": 4 * len(steps),
+                      "fused_support_score": 0}:
+            raise AssertionError(f"world-1 halo: launches {counts} for "
+                                 f"{len(steps)} steps")
+        if not np.isfinite(torch.stack(steps).cpu().numpy()).all():
+            raise AssertionError("world-1 halo: a loss is not finite")
+        log(f"  world-1 halo epoch: {len(steps)} steps, scorer launches "
+            f"{counts}")
+        trainers = {"single+sampling": (single, 4),
+                    "halo world 1+sampling": (halo, 4)}
+        names = list(trainers)
+        rates = self.epoch_rates(trainers, names + names[::-1],
+                                 "flagship b1024 scan_steps=16")
+        replays = {name: self.replay_profile(trainers[name][0],
+                                             f"{name} replayed")
+                   for name in names[::-1]}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(16):
+                halo._graph_step()
+            torch.cuda.synchronize()
+        nccl = [(e.self_device_time_total / 1e3, e.count, e.key)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and "nccl" in e.key.lower() and e.self_device_time_total > 0]
+        nccl_ms = sum(r[0] for r in nccl) / 16
+        nccl_exchange = exchange_ms(torch, 1, mesh.get_group("data"), 1)
+        log(f"  NCCL kernels in 16 halo replays: "
+            f"{[(round(ms, 4), n, k[:60]) for ms, n, k in nccl]}; "
+            f"{nccl_ms:.4f} ms a step (0 where NCCL launched no kernel); "
+            f"one eager world-1 NCCL exchange of [1, 1, "
+            f"{sum(FLAGSHIP_KERNELS)}] {nccl_exchange:.4f} ms (host clock, "
+            f"synchronised)")
+
+        # The host-fed halo epoch: the host loader's batches partitioned
+        # with pinned capacities, eager steps.
+        host = self.mp_trainer(ds, mesh, model_parallel="halo")
+        loader = GraphLoader(ds.subset("train"), host.spec, BATCH,
+                             oversample=True, seed=host.id_rng)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host_losses = host._mp_epoch(loader)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        counts = launch_counts()
+        self.mp_launches["mp_host"] = counts
+        if counts != {"grouped_support_score": 4 * len(host_losses),
+                      "fused_support_score": 0}:
+            raise AssertionError(f"host-fed halo: launches {counts}")
+        batches = list(loader)
+        part_s = {}
+        for shards in (1, 4):
+            t0 = time.perf_counter()
+            parts = [partition_halo(b, shards) for b in batches]
+            part_s[shards] = (time.perf_counter() - t0) / len(batches)
+        stats = halo_stats(parts[0])
+        width = sum(FLAGSHIP_KERNELS)
+        exch_bytes = stats["halo_rows_per_exchange"] * width * 4
+        host_rate = len(host_losses) * BATCH / host_s
+        log(f"  host-fed halo epoch (world 1, eager): {len(host_losses)} "
+            f"steps in {host_s:.3f} s, {host_rate:.1f} graphs/s, launches "
+            f"{counts}; host partitioner {part_s[1]:.4f} s a batch at 1 "
+            f"shard, {part_s[4]:.4f} s at 4; halo_stats at 4 shards "
+            f"{stats}: an exchange of {width}-wide fp32 rows moves "
+            f"{exch_bytes} bytes a rank")
+        self.mp_record["world1"] = {
+            "max_rel_loss_diff": rel, "max_param_diff": diff,
+            "graphs_per_s": rates, "replays": replays,
+            "nccl_ms_per_step": nccl_ms, "nccl_exchange_ms": nccl_exchange,
+            "host_graphs_per_s": host_rate,
+            "partition_s_per_batch": part_s, "halo_stats_4": stats,
+            "exchange_bytes_4": exch_bytes,
+            "launches": {k: self.mp_launches[k]
+                         for k in ("mp_world1", "mp_host")},
+        }
+
+    def mp_four_ranks(self, ds, tmp):
+        """(b) of phase 12: four gloo ranks sharing the card (NCCL refuses
+        two ranks on one device), one spawn: halo, hybrid and the edge
+        partition against one device in this process."""
+        import pickle
+
+        import numpy as np
+
+        from molkgnn_torch.graphs.batch import batch_graphs, spec_for_graphs
+        from molkgnn_torch.parallel import launch
+        from molkgnn_torch.training.optim import fill_missing_grads
+
+        torch = self.torch
+        path = os.path.join(tmp, "mp4")
+        os.makedirs(path, exist_ok=True)
+        rng = np.random.default_rng(SEED + 12)
+        train = np.asarray(ds.split["train"], np.int32)
+        job = {"halo": rng.choice(train, (3, BATCH)),
+               "hybrid": rng.choice(train, (2, BATCH))}
+        with open(os.path.join(path, "job.pkl"), "wb") as f:
+            pickle.dump((ds, job), f)
+        t0 = time.perf_counter()
+        launch.spawn(_mp_rank, 4, args=(path,), backend="gloo")
+        spawn_s = time.perf_counter() - t0
+        with open(os.path.join(path, "rank0.pkl"), "rb") as f:
+            ranks = pickle.load(f)
+
+        def rel_gap(got, want):
+            return float((got - want).abs().max()
+                         / want.abs().max().clamp(min=1e-30))
+
+        plain = self.mp_trainer(ds, None)
+        batches = [batch_graphs([ds.graphs[i] for i in row], plain.spec)
+                   .to("cuda") for row in job["halo"]]
+        plain.model.eval()
+        with torch.no_grad():
+            logits, pooled = plain.model(batches[0])
+        eval_gap = rel_gap(ranks["eval"].cuda(), logits)
+        edge_gap = rel_gap(ranks["edge"].cuda(), pooled)
+
+        def grad_gap(got, want):
+            """The gradients as one vector: the norm of the difference
+            over the norm (a scalar weight's gradient sums many cancelling
+            terms, so its own relative difference follows the summation
+            order)."""
+            got = torch.cat([got[n].cuda().reshape(-1) for n in want])
+            want = torch.cat([g.reshape(-1) for g in want.values()])
+            return float((got - want).norm() / want.norm())
+
+        # Each halo step against one device's step from the same state:
+        # its gradients at the ranks' own state before it, and its update
+        # against one device's optimizer fed the ranks' gradients. The
+        # first step starts from the same weights: its gradients and
+        # parameters are held within 1e-5. A later step's weights have
+        # been trained, and a neighbourhood's top two permutation scores
+        # may then lie within the summation noise, so that the shards'
+        # other order flips its argmax: a discrete gradient change, held
+        # within 1e-3. (Adam also divides a gradient element of the order
+        # of its eps, 1e-8, by itself, so such an element's update can
+        # move by up to the learning rate: one device's own 3 steps are
+        # printed beside, not held.)
+        grad_gaps = []
+        for t, batch in enumerate(batches):
+            plain.model.load_state_dict(
+                {k: v.cuda() for k, v in ranks["states"][t].items()})
+            plain._loss(batch).backward()
+            fill_missing_grads(plain._params)
+            want = {n: p.grad for n, p in plain.model.named_parameters()}
+            grad_gaps.append(grad_gap(ranks["grads"][t], want))
+            if t == 0:
+                worst = max(rel_gap(ranks["grads"][0][n].cuda(), g)
+                            for n, g in want.items() if g.abs().max() > 0)
+        fed = self.mp_trainer(ds, None)
+        names = dict(fed.model.named_parameters())
+        for g in ranks["grads"]:
+            with torch.no_grad():
+                for n, p in names.items():
+                    p.grad = g[n].cuda().clone()
+            fed._update()
+        fed_diff = max((ranks["halo"][n].cuda() - p).abs().max().item()
+                       for n, p in names.items())
+        own = self.mp_trainer(ds, None)
+        own._step(batches[0])
+        sd = own.model.state_dict()
+        step1_diff = max((v.cuda() - sd[k]).abs().max().item()
+                         for k, v in ranks["states"][1].items())
+        for batch in batches[1:]:
+            own._step(batch)
+        sd = own.model.state_dict()
+        halo_diff = max((v.cuda() - sd[k]).abs().max().item()
+                        for k, v in ranks["halo"].items())
+        past = sum(int(((v.cuda() - sd[k]).abs() > 1e-5).sum())
+                   for k, v in ranks["halo"].items())
+        stats_diff = max((v.cuda() - sd[k]).abs().max().item()
+                         for k, v in ranks["halo"].items() if "running" in k)
+        wide = self.mp_trainer(ds, None, batch=2 * BATCH,
+                               tot_iterations=MP_ITERATIONS)
+        ids = np.concatenate(job["hybrid"])
+        wide._step(batch_graphs([ds.graphs[i] for i in ids], wide.spec)
+                   .to("cuda"))
+        sd = wide.model.state_dict()
+        hybrid_diff = max((v.cuda() - sd[k]).abs().max().item()
+                          for k, v in ranks["hybrid"].items())
+        log(f"  4 gloo ranks on one card (spawned in {spawn_s:.1f} s): "
+            f"halo_stats {ranks['stats']}; halo eval forward against one "
+            f"device {eval_gap:.3e} (relative to the largest logit); the "
+            f"3 steps' gradients, each at the ranks' state before it, "
+            f"{[f'{g:.3e}' for g in grad_gaps]} (relative, norm of the "
+            f"difference over the norm; the first step's worst tensor by "
+            f"its largest element {worst:.3e}); the 3 updates against one "
+            f"device's optimizer fed the ranks' gradients {fed_diff:.3e}; "
+            f"against one device's own steps: parameters after the first "
+            f"{step1_diff:.3e}, after 3 {halo_diff:.3e} ({past} elements "
+            f"past 1e-5), the BatchNorm statistics {stats_diff:.3e}; "
+            f"3 eager halo "
+            f"steps {ranks['step_ms']} ms (rank 0, host clock, "
+            f"synchronised); hybrid 2x2 step against one device's step on "
+            f"the 2048 graphs {hybrid_diff:.3e}; edge-partition forward "
+            f"{edge_gap:.3e}; a gloo exchange of [4, "
+            f"{ranks['stats']['halo_rows_per_exchange'] // 4}, "
+            f"{sum(FLAGSHIP_KERNELS)}] fp32 {ranks['exchange_ms']:.3f} ms "
+            f"(rank 0, host clock, synchronised); rank 0's scorer launches "
+            f"{ranks['launches']}")
+        if (max(eval_gap, grad_gaps[0], step1_diff, stats_diff, fed_diff,
+                hybrid_diff, edge_gap) > 1e-5 or max(grad_gaps) > 1e-3):
+            raise AssertionError("4 gloo ranks differ from one device")
+        want = {"eval": 4, "halo": 4 * 3, "hybrid": 4, "edge": 4}
+        got = {k: v["grouped_support_score"]
+               for k, v in ranks["launches"].items()}
+        if got != want or any(v["fused_support_score"]
+                              for v in ranks["launches"].values()):
+            raise AssertionError(f"rank 0 launches {ranks['launches']}")
+        total = {name: sum(v[name] for v in ranks["launches"].values())
+                 for name in REPLACES}
+        self.mp_launches["mp_four_ranks"] = total
+        self.mp_record["four_ranks"] = {
+            "spawn_s": spawn_s, "step_ms": ranks["step_ms"],
+            "halo_stats": ranks["stats"], "eval_gap": eval_gap,
+            "grad_gaps": grad_gaps, "grad_worst_tensor_gap": worst,
+            "step1_param_diff": step1_diff, "halo_param_diff": halo_diff,
+            "elements_past_1e-5": past, "stats_diff": stats_diff,
+            "fed_param_diff": fed_diff,
+            "gloo_exchange_ms": ranks["exchange_ms"],
+            "hybrid_param_diff": hybrid_diff, "edge_gap": edge_gap,
+        }
+
+    def mp_cli(self, tmp):
+        """(c) and (d) of phase 12: the halo CLI under
+        torch.distributed.run (one NCCL rank) on phase 6's SDF pair,
+        counted; the hybrid CLI on two ranks refused on a one-card
+        machine."""
+        import numpy as np
+
+        from molkgnn_torch.cli import entry
+        from molkgnn_torch.tools.enantiomer import (
+            SAMPLING_ARGS,
+            parse_test_result,
+        )
+
+        ds, _ = self.cli_data
+        sizes = {k: len(v) for k, v in ds.split.items()}
+        out = os.path.join(tmp, "cli_halo")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "1", "-m", "molkgnn_torch.cli.entry",
+             "--dataset_name", "1798", "--dataset_path",
+             os.path.join(tmp, "dataset"), *SAMPLING_ARGS,
+             "--model_parallel", "halo", "--max_epochs", "1",
+             "--default_root_dir", out],
+            capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"halo CLI: exit {proc.returncode}\n"
+                                 f"{proc.stderr[-3000:]}")
+        logs = os.path.join(out, "logs")
+        tested = parse_test_result(os.path.join(logs, "test_result.log"))
+        with open(os.path.join(logs, "task_info.log")) as f:
+            info = f.read()
+        launched = dict(
+            (name, int(n)) for name, n in
+            (part.split() for part in info.split("scorer_launches: ")[1]
+             .splitlines()[0].split(", ")))
+        steps = -(-sizes["train"] // 32)
+        eval_batches = (-(-sizes["valid"] // 32)
+                        + (len(tested) + 1) * -(-sizes["test"] // 32))
+        want = 4 * (steps + eval_batches)
+        with open(os.path.join(logs, "history.json")) as f:
+            history = json.load(f)
+        finite = all(np.isfinite(m[k]) for m in tested.values()
+                     for k in ("AUC", "logAUC_0.001_0.1", "logAUC_0.001_1"))
+        log(f"  halo CLI under torch.distributed.run --nproc_per_node 1 "
+            f"(NCCL, --device_sampling --scan_steps 16, 1 epoch at batch "
+            f"32) in {secs:.1f} s: {steps} steps, {eval_batches} "
+            f"evaluation batches; scorer launches {launched} (want {want} "
+            f"grouped); train loss {history[0]['train_loss']:.4f}; test "
+            f"[last] AUC {tested['last']['AUC']:.4f}")
+        if ("ranks: 1" not in info or not finite
+                or not np.isfinite(history[0]["train_loss"])
+                or not os.path.exists(os.path.join(
+                    logs, "graph_embedding.npy"))):
+            raise AssertionError(f"halo CLI artifacts: {info!r} {tested}")
+        if launched != {"fused_support_score": 0,
+                        "grouped_support_score": want}:
+            raise AssertionError(f"halo CLI launches {launched}")
+        self.mp_launches["mp_cli"] = launched
+        cards = self.torch.cuda.device_count()
+        try:
+            entry.main(["--model_parallel", "hybrid", "--num_devices",
+                        str(cards + 1), "--dataset_name", "synthetic",
+                        "--default_root_dir",
+                        os.path.join(tmp, "cli_refused_mp")])
+            message = None
+        except SystemExit as e:
+            message = str(e)
+        log(f"  --model_parallel hybrid --num_devices {cards + 1} on "
+            f"{cards} card(s): {message}")
+        if not message or f"has {cards}" not in message or (
+                f"{cards + 1} CUDA devices" not in message):
+            raise AssertionError("the hybrid CLI was not refused naming "
+                                 "both numbers")
+        self.mp_record["cli"] = {"seconds": secs, "launches": launched,
+                                 "test": tested, "refused": message}
+
     # ------------------------------------------------------------ record
     def kernel_record(self):
         entries = []
@@ -3276,6 +3691,21 @@ class Smoke:
         }
         for path, what in dp_paths.items():
             new_paths[path] = (self.dp_launches[path], what)
+        mp_paths = {
+            "mp_world1": "phase 12(a): Trainer(model_parallel='halo', "
+            "mesh=make_mesh(1)) with device sampling, scan_steps=16, the "
+            "exchanges inside the captured step, an epoch, 4 a step",
+            "mp_host": "phase 12(a): the host-fed halo epoch at world 1, "
+            "eager, 4 a step",
+            "mp_four_ranks": "phase 12(b): rank 0 of 4 gloo ranks on one "
+            "card: a halo eval forward, 3 halo steps, a hybrid 2x2 step and "
+            "an edge-partition forward, 4 each",
+            "mp_cli": "phase 12(c): molkgnn_torch.cli.entry --model_parallel"
+            " halo under torch.distributed.run --nproc_per_node 1, read from"
+            " its task_info.log, 4 a step and an evaluation batch",
+        }
+        for path, what in mp_paths.items():
+            new_paths[path] = (self.mp_launches[path], what)
         for name in ("grouped_support_score", "fused_support_score"):
             if name == "grouped_support_score":
                 (l0, s0, e0) = self.per_request[(name, "layer 0")]
@@ -3379,6 +3809,116 @@ def _dp_rank(path):
             }, f)
 
 
+def exchange_ms(torch, hp, group, world, reps=20):
+    """Host-clock ms of one halo exchange (``parallel/collectives.py``) of
+    a layer's scores, ``[world, hp, sum(L)]`` fp32 on the card, over
+    ``group``, synchronised; the mean over ``reps`` after 3."""
+    from molkgnn_torch.parallel.collectives import exchange
+
+    send = torch.zeros((world, hp, sum(FLAGSHIP_KERNELS)), device="cuda")
+    for _ in range(3):
+        exchange(send, group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        exchange(send, group)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _mp_rank(path):
+    """A rank of phase 12(b), started by molkgnn_torch.parallel.launch in
+    a gloo world of 4 on one card: halo at 4 shards (the eval forward, the
+    first step's gradients, 3 steps), a 2x2 hybrid step and the edge
+    partition's forward; rank 0 writes its results."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from molkgnn_torch.graphs.batch import batch_graphs
+    from molkgnn_torch.models.kgnn import MolKGNNNet
+    from molkgnn_torch.parallel import edge_partition
+    from molkgnn_torch.parallel.data_parallel import make_mesh
+    from molkgnn_torch.parallel.halo import halo_stats, model_forward
+    from molkgnn_torch.parallel.hybrid import make_mesh_2d
+    from molkgnn_torch.training.optim import fill_missing_grads
+
+    mesh = make_mesh(4, backend="gloo")
+    mesh2 = make_mesh_2d(2, 2, backend="gloo")
+    rank = dist.get_rank()
+    with open(os.path.join(path, "job.pkl"), "rb") as f:
+        ds, job = pickle.load(f)
+    smoke = Smoke(torch)
+    halo = smoke.mp_trainer(ds, mesh, model_parallel="halo")
+    batches = [batch_graphs([ds.graphs[i] for i in row], halo.spec)
+               for row in job["halo"]]
+    parts = [halo._partition([b]) for b in batches]
+    out, launches = {"stats": halo_stats(parts[0])}, {}
+
+    def counted(name, fn):
+        reset_launches()
+        result = fn()
+        torch.cuda.synchronize()
+        launches[name] = launch_counts()
+        return result
+
+    with torch.no_grad():
+        out["eval"] = counted("eval", lambda: model_forward(
+            halo.model, halo._mine(parts[0]), halo._mp, train=False)[0]
+            .cpu())
+
+    def snapshot():
+        return {n: p.grad.detach().cpu().clone()
+                for n, p in halo.model.named_parameters()}
+
+    def state():
+        return {k: v.detach().cpu().clone()
+                for k, v in halo.model.state_dict().items()}
+
+    def steps():
+        out["states"] = [state()]  # the state before each step
+        loss = halo._loss(halo._mine(parts[0]))
+        loss.backward()
+        fill_missing_grads(halo._params)
+        halo._sync(loss.detach())
+        out["grads"] = [snapshot()]
+        halo._update()
+        out["states"].append(state())
+        out["step_ms"] = []
+        for i, part in enumerate(parts[1:]):
+            if i:
+                out["states"].append(state())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            halo._step(halo._mine(part))
+            torch.cuda.synchronize()
+            out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["grads"].append(snapshot())
+
+    counted("halo", steps)
+    out["halo"] = {k: v.cpu() for k, v in halo.model.state_dict().items()}
+    out["exchange_ms"] = exchange_ms(
+        torch, parts[0].halo_per_pair, mesh.get_group("data"), 4)
+    hybrid = smoke.mp_trainer(ds, mesh2, model_parallel="hybrid",
+                              tot_iterations=MP_ITERATIONS)
+    groups = [batch_graphs([ds.graphs[i] for i in row], hybrid.spec)
+              for row in job["hybrid"]]
+    counted("hybrid", lambda: hybrid._step(
+        hybrid._mine(hybrid._partition(groups))))
+    out["hybrid"] = {k: v.cpu() for k, v in hybrid.model.state_dict().items()}
+    enc = smoke.flagship(4, True, seed=SEED + 12, dropout=0.0).gnn_model
+    edge = MolKGNNNet(use_kernel=True, psum_group=mesh.get_group("data"))
+    edge.load_state_dict(enc.state_dict())
+    forward = edge_partition.edge_parallel_forward(edge.cuda(), mesh)
+    out["edge"] = counted("edge", lambda: forward(
+        edge_partition.partition_batch(batches[0], 4)).cpu())
+    out["launches"] = launches
+    if rank == 0:
+        with open(os.path.join(path, "rank0.pkl"), "wb") as f:
+            pickle.dump(out, f)
+
+
 def main() -> int:
     import torch
 
@@ -3455,6 +3995,9 @@ def main() -> int:
             phase = "data parallel"
             log("[11] data parallel on torch.distributed")
             smoke.phase_dp(graphs, spec, tmp)
+            phase = "model parallel"
+            log("[12] model parallel on torch.distributed")
+            smoke.phase_mp(tmp)
         record = smoke.kernel_record()
     except Exception:
         traceback.print_exc()
@@ -3472,7 +4015,8 @@ def main() -> int:
                       "points": smoke.points_record,
                       "chironet": smoke.chiro_record,
                       "side": smoke.side_record,
-                      "data_parallel": smoke.dp_record}),
+                      "data_parallel": smoke.dp_record,
+                      "model_parallel": smoke.mp_record}),
           flush=True)
     print(json.dumps(record), flush=True)
     print(smi, flush=True)

@@ -20,8 +20,7 @@ train on point-cloud batches whose spec has the family's ``--cutoff``
 (``kernels/``) are written for kgnn only, as by the JAX CLI.
 ``--balanced_batches`` deals kgnn's batches by size under a tight spec
 (``graphs/balance.py::spec_for_dataset``; the other families ignore the
-flag, as the JAX CLI's do). Not ported yet, and refused with the ROADMAP
-item that holds it: ``--model_parallel halo|hybrid`` (A13).
+flag, as the JAX CLI's do).
 
 Data parallel (``parallel/``): ``--num_devices N > 1`` trains over N
 ranks, one process a device. Without a launcher the CLI starts the N
@@ -34,6 +33,14 @@ process joins the launcher's world, a world of one included, and
 first (it may write the ingest cache), then the others; rank 0 alone
 prints the results and writes the artifacts, including the scorer launches
 of its process in ``task_info.log``.
+
+Model parallel (kgnn): ``--model_parallel halo`` node-shards every batch
+over all ranks (a world of one is set up in the process when there is no
+launcher and ``--num_devices`` is 1); ``--model_parallel hybrid`` makes a
+``(data, model)`` mesh of ``--num_data_shards`` x ranks / shards, and the
+rank count must divide by ``--num_data_shards`` (refused before any rank
+starts, as the JAX CLI refuses it). ``parallel/halo.py``,
+``parallel/hybrid.py``, ``TrainConfig.model_parallel``.
 
 Run as ``python -m molkgnn_torch.cli.entry --dataset_name synthetic_motif``
 (add ``--device cpu`` on a machine without a card).
@@ -57,10 +64,12 @@ def build_parser(gnn_type: str) -> argparse.ArgumentParser:
     t = p.add_argument_group("Trainer")
     t.add_argument("--max_epochs", type=int, default=20)
     t.add_argument("--default_root_dir", type=str, default=".")
-    # Data-parallel ranks (one process a device; see the module doc).
+    # Ranks (one process a device; see the module doc).
     t.add_argument("--num_devices", type=int, default=1)
-    # none: data parallel only. halo and hybrid (the JAX package's model
-    # parallelism) are not ported yet, refused.
+    # none: single device (or data parallel over --num_devices); halo:
+    # node-sharded halo-exchange model parallelism over the ranks (kgnn
+    # only); hybrid: a data x model 2D mesh (num_data_shards x
+    # ranks/num_data_shards).
     t.add_argument(
         "--model_parallel",
         choices=["none", "halo", "hybrid"],
@@ -197,14 +206,6 @@ def build_parser(gnn_type: str) -> argparse.ArgumentParser:
         g.add_argument("--encoder_reduction", type=str, default="sum")
         g.add_argument("--dropout", type=float, default=0.0)
     return p
-
-
-def unported(args) -> str | None:
-    """Why ``args`` asks for what the port does not have yet, or None."""
-    if args.model_parallel != "none":
-        return (f"--model_parallel {args.model_parallel} is not ported to "
-                "molkgnn_torch yet (ROADMAP A13)")
-    return None
 
 
 def build_model(args):
@@ -359,9 +360,6 @@ def main(argv=None):
     pre.add_argument("--gnn_type", default="kgnn")
     gnn_type = pre.parse_known_args(argv)[0].gnn_type
     args = build_parser(gnn_type).parse_args(argv)
-    reason = unported(args)
-    if reason:
-        raise SystemExit(reason)
     if args.device_sampling and not args.enable_oversampling_with_replacement:
         raise SystemExit(
             "--device_sampling reproduces the oversampling sampler on"
@@ -372,6 +370,11 @@ def main(argv=None):
     from molkgnn_torch.parallel.multihost import env_world
 
     world = env_world()
+    ranks = args.num_devices if world is None else world
+    if args.model_parallel == "hybrid" and ranks % args.num_data_shards:
+        raise SystemExit(
+            f"--num_devices {ranks} not divisible by"
+            f" --num_data_shards {args.num_data_shards}")
     if world is None and args.num_devices > 1:
         from molkgnn_torch.parallel.launch import spawn
 
@@ -385,17 +388,19 @@ def main(argv=None):
             f"--num_devices {args.num_devices} in a launched world of "
             f"{world} processes; pass {world} or 1")
 
+    import torch.distributed as dist
+
     from molkgnn_torch.parallel.multihost import initialize
     from molkgnn_torch.serving.predictor import resolve_device
 
     device = resolve_device(args.device)  # raises for cuda without a card
-    owned = world is not None and initialize(device=device)
+    had_group = dist.is_initialized()  # a spawned rank's, kept
     try:
+        if world is not None:
+            initialize(device=device)
         return _run(args, t_start, device, world)
     finally:
-        if owned:
-            import torch.distributed as dist
-
+        if not had_group and dist.is_initialized():
             dist.destroy_process_group()
 
 
@@ -406,10 +411,17 @@ def _run(args, t_start, device, world):
 
     from molkgnn_torch.ops import support_score as ss
     from molkgnn_torch.parallel.data_parallel import is_writer, make_mesh
+    from molkgnn_torch.parallel.hybrid import make_mesh_2d
     from molkgnn_torch.training.checkpoint import SUFFIX, load_checkpoint
     from molkgnn_torch.training.trainer import TrainConfig, Trainer
 
-    mesh = None if world is None else make_mesh(world, device=device)
+    mesh = None
+    if args.model_parallel == "hybrid":
+        nd = args.num_data_shards
+        ranks = 1 if world is None else world
+        mesh = make_mesh_2d(nd, ranks // nd, device=device)
+    elif args.model_parallel == "halo" or world is not None:
+        mesh = make_mesh(world, device=device)
     writer = is_writer()
     before = ss.launch_counts()
     # Rank 0 first: the ingest may write its cache, which the others read.
@@ -450,6 +462,8 @@ def _run(args, t_start, device, world):
         device_sampling=args.device_sampling,
         scan_steps=args.scan_steps,
         scan_chunk=args.scan_chunk,
+        model_parallel=(None if args.model_parallel == "none"
+                        else args.model_parallel),
         autosave_path=(
             os.path.join(args.default_root_dir, "autosave")
             if args.autosave

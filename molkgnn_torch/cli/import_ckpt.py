@@ -19,8 +19,7 @@ the artifact's static batch spec must cover (the point families' with
 their ``--cutoff``; ChIRoNet's over the molecules that have a dihedral,
 featurized with ``mol_to_chiro_graph``). ``--device`` (default ``cuda``)
 is the device the program is exported on, and so the one it serves on: on
-the card kgnn's scorer is the hand-written kernel. Refused with the
-ROADMAP item that holds them: what ``cli/entry.py::unported`` refuses.
+the card kgnn's scorer is the hand-written kernel.
 """
 
 from __future__ import annotations
@@ -68,14 +67,10 @@ def main(argv=None) -> int:
         build_model,
         build_parser,
         build_spec,
-        unported,
     )
 
     margs = build_parser(gnn_type).parse_args(
         model_argv + ["--device", args.device])
-    reason = unported(margs)
-    if reason:
-        raise SystemExit(reason)
 
     from molkgnn_torch.chem.sdf import parse_sdf
     from molkgnn_torch.serving.predictor import Predictor, resolve_device

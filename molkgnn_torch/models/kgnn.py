@@ -32,8 +32,15 @@ them); their score weights are trainable parameters. Score capture
 eager forward as ``KernelSetConv.scores`` (never under CUDA-graph capture),
 the counterpart of the JAX package's sown ``intermediates``.
 
-The bf16 product option and the cross-device psum of the JAX package are
-not ported yet.
+``matmul_dtype`` (e.g. ``torch.bfloat16``) rounds the operands of the
+permutation products (the plain support score and the edge score) to that
+type; normalization and accumulation stay in the model's type. With
+``use_kernel`` the support score stays fp32 in the scorer, as the JAX
+package's Pallas path does. ``psum_group`` (a process group) sums
+``KernelSetConv``'s node-order scores and ``MolGCN``'s aggregated features
+over the group, differentiably (``parallel/collectives.py``): the hook of
+the edge-partition baseline (``parallel/edge_partition.py``), the JAX
+``psum_axis``. Neither adds a parameter.
 """
 
 from __future__ import annotations
@@ -62,6 +69,7 @@ from molkgnn_torch.ops.support_score import (
     fused_support_score,
     grouped_support_score,
 )
+from molkgnn_torch.parallel.collectives import all_reduce_sum
 
 _PAIRS = [(i, j) for i in range(4) for j in range(i + 1, 4)]
 
@@ -96,12 +104,14 @@ class KernelConv(nn.Module):
         generator: torch.Generator | None = None,
         init_kernel: Optional[dict] = None,
         trainable_kernels: bool = True,
+        matmul_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         self.deg = deg
         self.num_kernels = num_kernels
         self.node_dim = node_dim
         self.use_kernel = use_kernel
+        self.matmul_dtype = matmul_dtype
         L, d = num_kernels, deg
         shapes = dict(x_center=(L, node_dim), x_support=(L, d, node_dim),
                       edge_attr_support=(L, d, edge_dim),
@@ -184,13 +194,15 @@ class KernelConv(nn.Module):
             best_idx = best_idx.long()
         else:
             support_sc = neighborhood_similarity(
-                x_nei, take_rows(self.x_support, perms, 1)
+                x_nei, take_rows(self.x_support, perms, 1),
+                matmul_dtype=self.matmul_dtype,
             )  # [M, L, P]
             best_sc, best_idx = support_sc.max(dim=2)  # first max wins
 
         # --- edge-attribute score at the best alignment ---
         edge_sc_all = neighborhood_similarity(
-            e_nei, take_rows(self.edge_attr_support, perms, 1)
+            e_nei, take_rows(self.edge_attr_support, perms, 1),
+            matmul_dtype=self.matmul_dtype,
         )  # [M, L, P]
         edge_sc = torch.gather(edge_sc_all, 2, best_idx[:, :, None])[:, :, 0]
 
@@ -291,13 +303,16 @@ class KernelSetConv(nn.Module):
         generator: torch.Generator | None = None,
         fixed_kernels: Optional[Sequence[Optional[dict]]] = None,
         sow_scores: bool = False,
+        matmul_dtype: Optional[torch.dtype] = None,
+        psum_group=None,
     ):
         super().__init__()
         self.use_kernel = use_kernel
         self.sow_scores = sow_scores
+        self.psum_group = psum_group
         self.scores: Optional[torch.Tensor] = None
         dims = dict(node_dim=node_dim, edge_dim=edge_dim, pos_dim=pos_dim,
-                    use_kernel=use_kernel)
+                    use_kernel=use_kernel, matmul_dtype=matmul_dtype)
         # Keyed by degree - 1, the reference checkpoint's index.
         self.fixed_kernelconv_set = nn.ModuleDict({
             str(d - 1): KernelConv(
@@ -371,6 +386,8 @@ class KernelSetConv(nn.Module):
             block = sc.new_zeros((n, sc.shape[1]))
             blocks.append(block.index_add_(0, b.focal_index, sc))
         out = torch.cat(blocks, dim=1)
+        if self.psum_group is not None:
+            out = all_reduce_sum(out, self.psum_group)
         if self.sow_scores and not (
             out.is_cuda and torch.cuda.is_current_stream_capturing()
         ):
@@ -399,8 +416,11 @@ class MolGCN(nn.Module):
         generator: torch.Generator | None = None,
         fixed_kernels: Optional[Sequence[Optional[dict]]] = None,
         sow_scores: bool = False,
+        matmul_dtype: Optional[torch.dtype] = None,
+        psum_group=None,
     ):
         super().__init__()
+        self.psum_group = psum_group
         # Off = reference parity: the deg-4 chirality sign applies at the
         # last layer only; on, at every layer.
         self.chirality_every_layer = chirality_every_layer
@@ -418,6 +438,8 @@ class MolGCN(nn.Module):
                 generator=generator,
                 fixed_kernels=fixed_kernels if i == 0 else None,
                 sow_scores=sow_scores,
+                matmul_dtype=matmul_dtype,
+                psum_group=psum_group,
             )
             layers.append(layer)
             in_dim = sum(layer.block_widths())
@@ -441,6 +463,8 @@ class MolGCN(nn.Module):
                 num_nodes=sc.shape[0],
                 edge_mask=batch.edge_mask,
             )
+            if self.psum_group is not None:
+                h = all_reduce_sum(h, self.psum_group)
         return h
 
 
@@ -471,6 +495,8 @@ class MolKGNNNet(nn.Module):
         generator: torch.Generator | None = None,
         fixed_kernels: Optional[Sequence[Optional[dict]]] = None,
         sow_scores: bool = False,
+        matmul_dtype: Optional[torch.dtype] = None,
+        psum_group=None,
     ):
         super().__init__()
         self.graph_embedding_dim = graph_embedding_dim
@@ -488,6 +514,8 @@ class MolKGNNNet(nn.Module):
             generator=generator,
             fixed_kernels=fixed_kernels,
             sow_scores=sow_scores,
+            matmul_dtype=matmul_dtype,
+            psum_group=psum_group,
         )
         self.graph_embedding_lin1 = TorchLinear(
             self.gnn.out_dim, graph_embedding_dim, generator=generator

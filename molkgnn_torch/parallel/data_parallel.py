@@ -83,8 +83,18 @@ def make_mesh(
     process; a larger world is started by ``parallel/launch.py`` or a
     launcher (``multihost.initialize``). ``n`` other than the world's size
     raises, as does a process group of another backend."""
-    from molkgnn_torch.serving.predictor import resolve_device
     from torch.distributed.device_mesh import init_device_mesh
+
+    device = join_world(n, device, backend, f"make_mesh({n})")
+    return init_device_mesh(device.type, (dist.get_world_size(),),
+                            mesh_dim_names=(AXIS,))
+
+
+def join_world(n: Optional[int], device, backend: Optional[str],
+               what: str) -> torch.device:
+    """The checks and set-up of ``make_mesh`` (see there) for a mesh of
+    ``n`` ranks (None: the world's); returns the device."""
+    from molkgnn_torch.serving.predictor import resolve_device
 
     device = resolve_device(device)
     if backend is None:
@@ -94,7 +104,7 @@ def make_mesh(
     if not dist.is_initialized():
         if n not in (None, 1):
             raise ValueError(
-                f"make_mesh({n}): no process group; start {n} processes "
+                f"{what}: no process group; start {n} processes "
                 "(parallel/launch.py, or torch.distributed.run) and join "
                 "them (multihost.initialize) first"
             )
@@ -102,7 +112,7 @@ def make_mesh(
                                 world_size=1)
     world = dist.get_world_size()
     if n is not None and n != world:
-        raise ValueError(f"make_mesh({n}) in a world of {world} processes")
+        raise ValueError(f"{what} in a world of {world} processes")
     have = dist.get_backend()
     if have != backend:
         raise ValueError(
@@ -110,12 +120,18 @@ def make_mesh(
         )
     if device.type == "cuda":
         torch.cuda.set_device(cuda_index(backend))
-    return init_device_mesh(device.type, (world,), mesh_dim_names=(AXIS,))
+    return device
 
 
 def mesh_rank(mesh) -> tuple[int, int]:
-    """(world size, this rank) of a one-dimensional data mesh."""
-    return mesh.size(), mesh.get_local_rank(AXIS)
+    """(world size, this rank) of a mesh over the world."""
+    return mesh.size(), mesh.get_rank()
+
+
+def world_group(mesh):
+    """The process group of every rank of ``mesh`` (which spans the
+    world): its one dimension's, or the default group's."""
+    return mesh.get_group(AXIS) if mesh.ndim == 1 else dist.group.WORLD
 
 
 def batch_norm_buffers(model: nn.Module) -> List[torch.Tensor]:
@@ -131,15 +147,26 @@ class GradSync:
     """The data-parallel collective of a train step (see the module doc).
 
     ``sync(loss)`` replaces every parameter's gradient and every BatchNorm
-    statistic by its mean over the mesh, and returns the mean loss (a new
-    tensor). Gradients must exist (``optim.fill_missing_grads``). The flat
-    buffer is made here, before any capture; parameters and statistics
-    share one dtype (a model in float32, or in float64 for parity)."""
+    statistic by its sum over every rank of the mesh divided by
+    ``divisor`` (default the rank count: the mean), and returns the loss so
+    reduced (a new tensor). Gradients must exist
+    (``optim.fill_missing_grads``). The flat buffer is made here, before
+    any capture; parameters and statistics share one dtype (a model in
+    float32, or in float64 for parity).
+
+    Model parallelism passes no statistics (its BatchNorm statistics are
+    global already) and divides by the shards of a batch: ``S`` shards'
+    gradients (each ``S`` times its partial, ``parallel/halo.py``) summed
+    over a world of ``D`` data groups of ``S`` and divided by ``S`` are
+    ``psum(pmean(g, model), data)``, and the loss, a data group's share on
+    each of its shards, sums to the global loss the same way."""
 
     def __init__(self, mesh, params: Sequence[nn.Parameter],
-                 buffers: Sequence[torch.Tensor]):
-        self.group = mesh.get_group(AXIS)
+                 buffers: Sequence[torch.Tensor],
+                 divisor: Optional[int] = None):
+        self.group = world_group(mesh)
         self.world = mesh.size()
+        self.divisor = divisor or self.world
         self.params = list(params)
         self.buffers = list(buffers)
         tensors = self.params + self.buffers
@@ -164,7 +191,7 @@ class GradSync:
         local = [p.grad for p in self.params] + self.buffers
         torch._foreach_copy_(self._views, local + [loss])
         dist.all_reduce(self.flat, group=self.group)
-        self.flat.div_(self.world)
+        self.flat.div_(self.divisor)
         torch._foreach_copy_(local, self._views[:-1])
         return self._views[-1].clone()
 

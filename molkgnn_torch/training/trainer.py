@@ -72,7 +72,29 @@ data-parallel paths):
     host-loader path evaluates the whole split on each rank. Rank 0 alone
     writes files (logs, checkpoints, autosaves, test results, kernels,
     embeddings); every rank loads. The SIGTERM stop flag is all-reduced
-    once an epoch, so every rank stops after the same epoch.
+    once an epoch, so every rank stops after the same epoch;
+  * model parallelism with ``model_parallel`` (kgnn only): ``"halo"`` over
+    a one-dimensional mesh (every rank a node shard of each batch,
+    ``parallel/halo.py``), ``"hybrid"`` over a ``make_mesh_2d`` mesh
+    (``nd`` data groups of ``nm`` shards, ``parallel/hybrid.py``). Host-fed
+    (the default): every rank draws the same whole batches from the host
+    loader (not cut by rank), a step takes ``nd`` of them (one a data
+    group; the trailing partial group dropped), partitioned on the host
+    with the run's pinned capacities (from the first batch, widened by
+    half and rounded to 8; an overflowing batch widens them from its own,
+    so they only grow) and run eagerly. With ``device_sampling`` every
+    halo rank draws the single-device id stream (a hybrid data group its
+    own, seeded from its data index) and assembles its ``B / nm``
+    molecules on the device, ``ceil(n_train / B)`` steps an epoch
+    (``// nd`` under hybrid, at least 1); on an NCCL mesh with
+    ``scan_steps > 1`` that step is captured, its exchanges inside the
+    graph. Gradients are summed over every rank and divided by ``nm``
+    (``GradSync``; the BatchNorm statistics are global in the forward and
+    not reduced again). Evaluation, test and the embedding pass run the
+    sharded eval forward on every rank, each split's partitions cached
+    (three splits at most, rebuilt when the capacities grow). Refused:
+    balanced batches, the point and ChIRoNet families, and models with
+    fixed kernel sets or ``chirality_every_layer`` (``halo.check_model``).
 
 The step counter ``step`` counts every train step. ``updates`` counts the
 updates applied: Adam's count and the schedule's position. With
@@ -116,6 +138,7 @@ from molkgnn_torch.graphs.balance import (
     count_matrix,
     deal_by_size,
 )
+from molkgnn_torch.graphs.batch import spec_for_graphs
 from molkgnn_torch.graphs.device_pack import (
     alias_sampler,
     pad_ids,
@@ -128,13 +151,28 @@ from molkgnn_torch.ops.support_score import (
     take_launches,
 )
 from molkgnn_torch.parallel.data_parallel import (
-    AXIS,
     GradSync,
     batch_norm_buffers,
     is_writer,
     mesh_rank,
     rank_rows,
     sampler_seed,
+    world_group,
+)
+from molkgnn_torch.parallel.halo import (
+    HaloBatch,
+    check_model,
+    halo_groups,
+    halo_loss,
+    model_forward,
+    partition_halo,
+    sampled_halo_batch,
+)
+from molkgnn_torch.parallel.hybrid import (
+    gather_groups,
+    hybrid_groups,
+    partition_hybrid,
+    union_caps,
 )
 from molkgnn_torch.serving.blocks import BlockScorer
 from molkgnn_torch.serving.predictor import (
@@ -168,6 +206,11 @@ GRAPH_WARMUP = 2
 # Salt of the device sampler's seed, so that its stream never meets the
 # dropout stream's (the JAX package folds the same salt into its key).
 SAMPLE_SALT = 0x5A17
+# Model parallelism's pinned capacities: the needed ones times this,
+# rounded up to 8 (the JAX Trainer's margin).
+CAPS_MARGIN = 1.5
+# Evaluation splits whose partitions are kept (valid, test, train).
+EVAL_CACHE_MAX = 3
 
 
 @dataclasses.dataclass
@@ -215,6 +258,10 @@ class TrainConfig:
     # excludes device_sampling (dealing is host-side).
     balanced_batches: bool = False
     autosave_path: Optional[str] = None
+    # Model parallelism for kgnn over the Trainer's mesh: "halo" (node
+    # shards of each batch), "hybrid" (a 2D data x model mesh); None is data
+    # parallelism over the mesh (see the module doc).
+    model_parallel: Optional[str] = None
 
     def resolve_tot_iterations(self, num_train: int) -> int:
         if self.tot_iterations is not None:
@@ -222,6 +269,17 @@ class TrainConfig:
         # ceil(train / batch) * max_epochs + 2, as the reference derives it
         per_epoch = -(-num_train // self.batch_size)
         return per_epoch * self.max_epochs + 2
+
+
+def _widen(caps: dict) -> dict:
+    """Pinned capacities from needed ones (``CAPS_MARGIN``, multiples of
+    8); the node rows a shard stay the spec's."""
+    def w(v):
+        return -(-int(v * CAPS_MARGIN) // 8) * 8
+
+    return {"ns": caps["ns"], "hp": w(caps["hp"]), "el": w(caps["el"]),
+            "eh": w(caps["eh"]),
+            "buckets": tuple(w(b) for b in caps["buckets"])}
 
 
 class Trainer:
@@ -252,6 +310,8 @@ class Trainer:
         self.monitor = monitor
         self.mesh = mesh
         self.world, self.rank = (1, 0) if mesh is None else mesh_rank(mesh)
+        # Model parallelism: this rank's groups (halo.HaloGroups).
+        self._mp = self._model_parallel(config.model_parallel, mesh, spec)
         self.loss_fn = LOSSES[dataset.loss_name]
         self.history: List[Dict[str, float]] = []
         self.best: Dict[str, float] = {}
@@ -281,9 +341,16 @@ class Trainer:
             if isinstance(m, Dropout):
                 m.generator = self.dropout_rng
         self.id_rng = np.random.default_rng(config.seed)
+        # Data parallel: a stream a rank; halo: the single-device stream on
+        # every rank; hybrid: a stream a data group.
+        stream = None if mesh is None else self.rank
+        if config.model_parallel == "halo":
+            stream = None
+        elif config.model_parallel == "hybrid":
+            stream = mesh.get_local_rank("data")
         self.sample_rng = torch.Generator(device=self.device)
         self.sample_rng.manual_seed(sampler_seed(
-            config.seed, SAMPLE_SALT, None if mesh is None else self.rank))
+            config.seed, SAMPLE_SALT, stream))
         self._train_ids = train_ids
         self._train_labels = np.array([dataset.graphs[i].y for i in train_ids])
         # The spec's batch family: the host loader's collate (None: kgnn's
@@ -292,11 +359,33 @@ class Trainer:
                          if spec_family(spec) != "kgnn" else None)
         build, self._gather = device_pipeline(spec)
         self._device_data = None
-        if config.use_device_data:
+        # Model parallelism assembles batches on the device only when it
+        # samples there; else they are partitioned on the host.
+        if config.use_device_data and (self._mp is None
+                                       or config.device_sampling):
             self._device_data = build(dataset.graphs, self.device)
+        self._shard_spec = None
+        if self._mp is not None and config.device_sampling:
+            nm = self._mp.n_model
+            if config.batch_size % nm:
+                raise ValueError(
+                    f"device_sampling with model_parallel="
+                    f"{config.model_parallel!r} needs batch_size divisible"
+                    f" by the {nm} model shards (got {config.batch_size})")
+            self._shard_spec = spec_for_graphs(dataset.graphs,
+                                               config.batch_size // nm)
+        # Model parallelism's pinned capacities and cached evaluation
+        # partitions.
+        self._caps = None
+        self._eval_parts: Dict[tuple, tuple] = {}
         # Per-graph padded-field sizes, what balanced mode deals and checks.
         self._counts = None
         if config.balanced_batches:
+            if self._mp is not None:
+                raise ValueError(
+                    "balanced_batches deals the device-data path's batches; "
+                    "model_parallel partitions host-loader batches or "
+                    "samples on the device")
             if self._device_data is None or self._collate is not None:
                 raise ValueError(
                     "balanced_batches requires the device-data path "
@@ -342,13 +431,17 @@ class Trainer:
         self._sync = None
         if mesh is not None:
             if (config.scan_steps > 1 and self.device.type == "cuda"
-                    and dist.get_backend(mesh.get_group(AXIS)) != "nccl"):
+                    and dist.get_backend(world_group(mesh)) != "nccl"):
                 raise ValueError(
                     "scan_steps > 1 on the card needs an NCCL mesh: a "
                     "gloo collective runs on the host and cannot be "
                     "captured in a CUDA graph")
             buffers = batch_norm_buffers(self.model)
-            self._sync = GradSync(mesh, self._params, buffers)
+            if self._mp is None:
+                self._sync = GradSync(mesh, self._params, buffers)
+            else:  # statistics global already; see GradSync
+                self._sync = GradSync(mesh, self._params, [],
+                                      divisor=self._mp.n_model)
             self._sync.broadcast(self._params + buffers)
 
     @property
@@ -356,11 +449,34 @@ class Trainer:
         """Updates applied (reads the device's count back)."""
         return int(self.optimizer.count)
 
+    def _model_parallel(self, kind, mesh, spec):
+        """The groups of ``config.model_parallel`` on ``mesh``, or None;
+        refuses what it cannot run (the JAX Trainer's checks, and the
+        model options the sharded forward does not keep)."""
+        if kind is None:
+            return None
+        if kind not in ("halo", "hybrid"):
+            raise ValueError(f"unknown model_parallel={kind!r}"
+                             " (supported: 'halo', 'hybrid')")
+        if mesh is None:
+            raise ValueError(f"model_parallel={kind!r} requires a mesh")
+        if spec_family(spec) != "kgnn":
+            raise ValueError("model_parallel supports the kgnn batch family"
+                             " only")
+        check_model(self.model.gnn_model)
+        sampled = self.config.device_sampling
+        if kind == "halo":
+            return halo_groups(mesh, sampled)
+        return hybrid_groups(mesh, sampled)
+
     # ------------------------------------------------------------------
     def _loss(self, batch) -> torch.Tensor:
-        """Train-mode forward and loss, gradients zeroed in place."""
+        """Train-mode forward and loss, gradients zeroed in place (under
+        model parallelism ``batch`` is this rank's ``HaloBatch`` shard)."""
         self.model.train()
         self.optimizer.zero_grad()
+        if self._mp is not None:
+            return halo_loss(self.model, self.loss_fn, batch, self._mp)
         pred, _ = self.model(batch)
         return self.loss_fn(pred, batch.y, batch.graph_mask)
 
@@ -404,6 +520,10 @@ class Trainer:
                              self.config.batch_size)
         else:
             ids = self._graph_ids
+        if self._mp is not None:
+            return self._step(sampled_halo_batch(
+                self._device_data, ids, self._shard_spec, self._gather,
+                self._mp.n_model, self._mp.index))
         return self._step(self._gather(self._device_data, ids, self.spec))
 
     def _capture(self) -> None:
@@ -469,8 +589,8 @@ class Trainer:
         graphed = k > 1 and self.device.type == "cuda"
         if self._sampler is not None:
             steps = -(-len(self._train_ids) // cfg.batch_size)
-            if self.mesh is not None:
-                steps = max(steps // self.world, 1)
+            if self.mesh is not None:  # a step takes a batch a data group
+                steps = max(steps // self._data_groups(), 1)
             if graphed:
                 return [self._graph_step() for _ in range(steps)]
             return [self._device_step() for _ in range(steps)]
@@ -489,6 +609,49 @@ class Trainer:
                 self._graph_step(torch.as_tensor(ids, device=self.device))
             )
         return losses
+
+    def _data_groups(self) -> int:
+        """Batches a step takes: the ranks, or the hybrid data groups."""
+        return self.world // (1 if self._mp is None else self._mp.n_model)
+
+    def _mp_epoch(self, loader) -> List[torch.Tensor]:
+        """One host-fed model-parallel epoch: every rank draws the same
+        batches; a step takes one a data group, partitioned with the pinned
+        capacities (the trailing partial group dropped)."""
+        nd = self._data_groups()
+        losses, group = [], []
+        for batch in loader:
+            group.append(batch)
+            if len(group) == nd:
+                losses.append(self._step(self._mine(self._partition(group))))
+                group = []
+        return losses
+
+    def _partition(self, batches) -> HaloBatch:
+        """``batches`` (one a data group) partitioned over the model shards
+        with the run's pinned capacities, grown from an overflowing batch
+        (see the module doc); numpy, every shard."""
+        nm = self._mp.n_model
+
+        def needed(batch):
+            return _widen(partition_halo(batch, nm).caps())
+
+        if self._caps is None:
+            self._caps = needed(batches[0])
+            for b in batches[1:]:
+                self._caps = union_caps(self._caps, needed(b))
+        try:
+            return partition_hybrid(batches, nm, caps=self._caps)
+        except ValueError:
+            for b in batches:
+                self._caps = union_caps(self._caps, needed(b))
+            return partition_hybrid(batches, nm, caps=self._caps)
+
+    def _mine(self, hb: HaloBatch) -> HaloBatch:
+        """This rank's shard of a ``_partition`` batch, on the device in
+        the model's dtype."""
+        index = (self.rank // self._mp.n_model, self._mp.index)
+        return hb.shard(index, self.device, self._params[0].dtype)
 
     def _epoch_id_batches(self):
         """The epoch's sampled train ids, batch by batch, -1 padded: the
@@ -571,7 +734,52 @@ class Trainer:
         mask = np.concatenate(masks)
         return np.concatenate(trues)[mask], all_pred[mask]
 
+    @torch.no_grad()
+    def _predict_mp(self, graphs):
+        """(labels, predictions, embeddings) of ``graphs`` through the
+        model-parallel eval forward, on every rank: the batches of the
+        host loader, ``nd`` at a time (the last group padded by repeating
+        its last batch), partitioned with the pinned capacities (cached by
+        split: see the module doc); one readback."""
+        nd = self._data_groups()
+        idx = tuple(g.idx for g in graphs)
+        key = None if any(i < 0 for i in idx) else idx  # no identity
+        hit = self._eval_parts.get(key) if key else None
+        if hit is None or hit[0] != repr(self._caps):
+            batches = list(GraphLoader(graphs, self.spec,
+                                       self.config.batch_size))
+            groups = []
+            for start in range(0, len(batches), nd):
+                grp = batches[start:start + nd]
+                groups.append((self._partition(
+                    grp + [grp[-1]] * (nd - len(grp))), len(grp)))
+            hit = (repr(self._caps), groups,
+                   np.concatenate([b.graph_mask.numpy() for b in batches]),
+                   np.concatenate([b.y.numpy() for b in batches]))
+            if key is not None:
+                if (key not in self._eval_parts
+                        and len(self._eval_parts) >= EVAL_CACHE_MAX):
+                    self._eval_parts.pop(next(iter(self._eval_parts)))
+                self._eval_parts[key] = hit
+        _, groups, mask, trues = hit
+        preds, embs = [], []
+        for hb, n_real in groups:
+            pred, emb = model_forward(self.model, self._mine(hb), self._mp,
+                                      train=False)
+            if nd > 1:  # every data group's batch, in group order
+                pred = gather_groups(pred, self._mp)
+                emb = gather_groups(emb, self._mp)
+            else:
+                pred, emb = pred[None], emb[None]
+            preds.append(pred[:n_real].reshape(-1))
+            embs.append(emb[:n_real].reshape(-1, emb.shape[-1]))
+        pred = torch.cat(preds).cpu().numpy()
+        emb = torch.cat(embs).cpu().numpy()
+        return trues[mask], pred[mask], emb[mask]
+
     def _predictions(self, part: str):
+        if self._mp is not None:
+            return self._predict_mp(self.dataset.subset(part))[:2]
         if self._device_data is not None:
             return self._predict_ids(self.dataset.split[part])
         return self._predict(self.dataset.subset(part))
@@ -626,7 +834,7 @@ class Trainer:
     def _fit_loop(self, start_epoch, stop) -> List[Dict[str, float]]:
         cfg = self.config
         batches = -(-len(self._train_ids) // cfg.batch_size)
-        if self.world > 1 and batches < self.world:
+        if self._mp is None and self.world > 1 and batches < self.world:
             raise ValueError(
                 "data-parallel fit() needs at least one id-batch per device:"
                 f" ceil(n_train/batch_size) = {batches} < {self.world}"
@@ -645,12 +853,15 @@ class Trainer:
                 oversample=cfg.oversample,
                 seed=self.id_rng,
                 collate=self._collate,
-                shard=(self.rank, self.world),
+                # Model parallelism: every rank draws the whole batches.
+                shard=(0, 1) if self._mp else (self.rank, self.world),
             )
         for epoch in range(start_epoch, cfg.max_epochs):
             t0 = time.time()
             if loader is None:
                 losses = self._epoch_steps()
+            elif self._mp is not None:
+                losses = self._mp_epoch(loader)
             else:
                 losses = [self._step(b.to(self.device))
                           for b in prefetch_to_device(loader)]
@@ -819,13 +1030,16 @@ class Trainer:
     def save_graph_embedding(self, out_dir: str, part: str = "test"):
         """Write the split's graph embeddings and smiles, in split order
         (balanced mode: batches dealt and checked as in evaluation, then
-        put back in order). Rank 0 alone computes and writes them."""
+        put back in order). Rank 0 alone computes and writes them; under
+        model parallelism every rank runs the sharded forward."""
+        graphs = self.dataset.subset(part)
+        if self._mp is not None:
+            all_emb = self._predict_mp(graphs)[2]
         if not is_writer():
             return
         os.makedirs(out_dir, exist_ok=True)
-        graphs = self.dataset.subset(part)
         self.model.eval()
-        if self._counts is not None:
+        if self._mp is None and self._counts is not None:
             ids = np.asarray(self.dataset.split[part])
             idm, posm = self._deal(ids)
             embs = [
@@ -836,7 +1050,7 @@ class Trainer:
             ]
             all_emb = self._in_order(torch.cat(embs).cpu().numpy(), posm,
                                      len(ids))
-        else:
+        elif self._mp is None:
             embs, masks = [], []
             for batch in GraphLoader(graphs, self.spec,
                                      self.config.batch_size,

@@ -266,10 +266,11 @@ def test_cuda_trainer_step():
     assert conv.x_support.grad.abs().sum().item() > 0
 
 
-def _small_run(tmp_path, sub, **kw):
-    """A 2-layer model with the scorer kernel and dropout 0.25 on 320
-    tie-free molecules (256 train: 8 steps of 32 an epoch), on the card;
-    with balanced_batches, under the dealt tight spec."""
+def _small_run(tmp_path, sub, dropout=0.25, **kw):
+    """A 2-layer model with the scorer kernel and dropout 0.25 (or
+    ``dropout``) on 320 tie-free molecules (256 train: 8 steps of 32 an
+    epoch), on the card; with balanced_batches, under the dealt tight
+    spec."""
     from molkgnn_torch.data.dataset import make_tie_free_dataset
     from molkgnn_torch.graphs.batch import spec_for_graphs
     from molkgnn_torch.models.kgnn import MolKGNNNet
@@ -279,9 +280,9 @@ def _small_run(tmp_path, sub, **kw):
     ds = make_tie_free_dataset(320, 256, seed=3, active_fraction=0.3)
     gen = torch.Generator().manual_seed(5)
     model = GNNModel(
-        MolKGNNNet(num_layers=2, use_kernel=True, drop_ratio=0.25,
+        MolKGNNNet(num_layers=2, use_kernel=True, drop_ratio=dropout,
                    generator=gen),
-        ffn_dropout_rate=0.25, generator=gen,
+        ffn_dropout_rate=dropout, generator=gen,
     )
     cfg = dict(batch_size=32, max_epochs=1, warmup_iterations=4,
                tot_iterations=40, progress=False,
@@ -1043,3 +1044,97 @@ def test_cuda_two_gloo_ranks_on_one_card_equal_a_plain_dp_step(tmp_path):
     assert set(got) == set(want)
     for k, v in got.items():
         torch.testing.assert_close(v.cuda(), want[k], rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------------ model parallel
+def _halo_batches(t, ids):
+    """Host batches of the graph ids ``ids`` [S, B] under ``t``'s spec."""
+    from molkgnn_torch.graphs.batch import batch_graphs
+
+    return [batch_graphs([t.dataset.graphs[i] for i in row], t.spec)
+            for row in ids]
+
+
+def _halo_gloo_rank(path):
+    """A shard of a gloo world of 2 on one card: 2 eager halo steps of
+    ``_small_run`` (dropout 0) on host-partitioned batches; rank 0 saves
+    its weights and scorer launches."""
+    import pathlib
+
+    import torch.distributed as dist
+
+    from molkgnn_torch.parallel.data_parallel import make_mesh
+
+    path = pathlib.Path(path)
+    mesh = make_mesh(2, backend="gloo")
+    t = _small_run(path, f"rank{dist.get_rank()}", dropout=0.0, mesh=mesh,
+                   model_parallel="halo")
+    before = ss.grouped_support_score.launches
+    for batch in _halo_batches(t, np.load(path / "ids.npy")):
+        t._step(t._mine(t._partition([batch])))
+    if dist.get_rank() == 0:
+        torch.save({"state": {k: v.cpu()
+                              for k, v in t.model.state_dict().items()},
+                    "launches": ss.grouped_support_score.launches - before},
+                   path / "rank0.pt")
+
+
+@pytest.mark.cuda
+def test_cuda_two_gloo_ranks_halo_steps_equal_one_device(tmp_path):
+    """Two halo shards sharing the card over gloo (the exchanges on CUDA
+    tensors), 2 eager steps on the same batches as one device's Trainer
+    (dropout 0): parameters within 1e-5; 2 scorer launches a step on a
+    rank."""
+    _needs_card()
+    from molkgnn_torch.parallel import launch
+
+    ids = np.random.default_rng(3).choice(256, (2, 32)).astype(np.int32)
+    np.save(tmp_path / "ids.npy", ids)
+    launch.spawn(_halo_gloo_rank, 2, args=(str(tmp_path),), backend="gloo")
+    plain = _small_run(tmp_path, "plain", dropout=0.0)
+    for batch in _halo_batches(plain, ids):
+        plain._step(batch.to("cuda"))
+    got = torch.load(tmp_path / "rank0.pt")
+    assert got["launches"] == 2 * 2
+    want = plain.model.state_dict()
+    assert set(got["state"]) == set(want)
+    for k, v in got["state"].items():
+        torch.testing.assert_close(v.cuda(), want[k], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_world_one_halo_replayed_equals_eager(tmp_path):
+    """A world-1 NCCL halo mesh with device sampling, eager against the
+    captured step (scan_steps=8, the exchanges inside the graph; dropout
+    on, whose masks replays draw as eager steps do): losses within 1e-5
+    relative, parameters within 1e-5, 2 launches a step; the eager halo
+    run against one device's device-sampled run, within 1e-5."""
+    _needs_card()
+    import torch.distributed as dist
+
+    from molkgnn_torch.parallel.data_parallel import make_mesh
+
+    mesh = make_mesh(1)
+    try:
+        runs = {}
+        for name, k, m in (("eager", 1, mesh), ("graphed", 8, mesh),
+                           ("single", 1, None)):
+            t = _small_run(tmp_path, name, scan_steps=k, mesh=m,
+                           device_sampling=True, dropout=0.0,
+                           model_parallel=None if m is None else "halo")
+            before = ss.grouped_support_score.launches
+            t.fit()
+            runs[name] = (t, ss.grouped_support_score.launches - before)
+        eager, graphed, single = (runs[n][0] for n in
+                                  ("eager", "graphed", "single"))
+        assert graphed._graph is not None and eager._graph is None
+        assert eager.step == graphed.step == single.step == 8
+        np.testing.assert_allclose(graphed.step_losses, eager.step_losses,
+                                   rtol=1e-5)
+        np.testing.assert_allclose(eager.step_losses, single.step_losses,
+                                   rtol=1e-5)
+        assert _max_param_diff(eager, graphed) <= 1e-5
+        assert _max_param_diff(eager, single) <= 1e-5
+        assert runs["graphed"][1] == 2 * 8 + 2
+    finally:
+        dist.destroy_process_group()

@@ -619,7 +619,8 @@ def test_mesh_refusals():
 
 def test_cli_two_ranks_on_cpu(tmp_path, monkeypatch):
     """(8) --num_devices 2 --device cpu: two ranks over gloo, one set of
-    artifacts written by rank 0; --model_parallel halo still refused."""
+    artifacts written by rank 0; --model_parallel hybrid over ranks that
+    --num_data_shards does not divide is refused before any rank starts."""
     from molkgnn_torch.cli import entry as t_entry
 
     monkeypatch.setenv("OMP_NUM_THREADS", "2")
@@ -634,9 +635,9 @@ def test_cli_two_ranks_on_cpu(tmp_path, monkeypatch):
     assert "[last]" in (root / "logs" / "test_result.log").read_text()
     assert (root / "checkpoints" / "last.pt").exists()
     assert (root / "logs" / "kernels" / "kernels.npz").exists()
-    with pytest.raises(SystemExit, match="ROADMAP A13"):
-        t_entry.main(["--device", "cpu", "--num_devices", "2",
-                      "--model_parallel", "halo"])
+    with pytest.raises(SystemExit, match="not divisible"):
+        t_entry.main(["--device", "cpu", "--num_devices", "3",
+                      "--model_parallel", "hybrid"])
 
 
 def test_schnet_dp_step_matches_jax(runs):

@@ -160,6 +160,10 @@ import molkgnn_torch.parallel
 import molkgnn_torch.parallel.data_parallel
 import molkgnn_torch.parallel.multihost
 import molkgnn_torch.parallel.launch
+import molkgnn_torch.parallel.collectives
+import molkgnn_torch.parallel.halo
+import molkgnn_torch.parallel.hybrid
+import molkgnn_torch.parallel.edge_partition
 import chip_smoke
 loaded = sorted(m for m in sys.modules if banned(m))
 assert not loaded, loaded
