@@ -228,6 +228,34 @@ Phases, in order; any failure exits non-zero and prints no result line:
               launches of its task_info.log = 4 x (steps + evaluation
               batches). (d) --model_parallel hybrid --num_devices 2 on a
               one-card machine exits naming 2 and 1.
+ 13. last modules: (a) molkgnn_torch.native: the g++ build into
+              molkgnn_torch/build/ (seconds), have_native() true,
+              floyd_warshall and gen_edge_input on the adjacency and edge
+              features of phase 3's molecules (all 8192 through the
+              library, host ms per 1,000 molecules; the first 1024 also
+              through the numpy versions, which must agree bit for bit).
+              (b) enantiomer_separation at the flagship's width on 64
+              tie-free molecules with a degree-4 centre whose neighbours'
+              features differ pairwise: the card's cosines against the
+              CPU's with the same weights, fp64 with the kernel off within
+              1e-9 and fp32 on the grouped scorer within 1e-5 (counted, 4
+              a forward); at least one cosine under 0.99999. (c) SphereNet
+              with use_node_features=False at its published widths, batch
+              128 on phase 8's molecules: 3 eager train steps (finite
+              losses; the node vector learns), the fp64 forward of 8
+              molecules on the card against the CPU within 1e-9 (relative
+              to the largest value, as in phase 8(d)), a state_dict round
+              trip through the port's importer, eager train graphs/s
+              beside the atom-table SphereNet in turns; 0 scorer launches,
+              counted. (d) The flagship with matmul_dtype=torch.bfloat16
+              at batch 1024 on phase 10's tie-free molecules, TF32 off:
+              the eval forward on the card against the CPU within 1e-5 on
+              the kernel route (counted) and within 1e-4 on the plain one
+              (whose support operands are rounded too: a last-bit
+              difference upstream flips some bf16 roundings), each more
+              than 1e-4 from the card's fp32-product forward; replayed train
+              graphs/s (scan_steps=16, device sampling) bf16 against fp32
+              in turns.
 
 The last lines are the records of the phases' numbers, the kernel record
 ({"kernels": [...]}), the card's name and power limit, and
@@ -296,6 +324,13 @@ FIXED_KERNELS = (4, 6, 8, 10)
 MP_ITERATIONS = 1000
 # Phase 9(d)'s second model: chiral message passing with softmax c.
 CHIRO_CMP = {"chiral_message_passing": True, "c_normalization": "softmax"}
+# Phase 13: (a) phase 3's molecules also run through the numpy versions of
+# the native utilities (whose gen_edge_input walks every path in Python,
+# seconds per 1,000 molecules); (b) the enantiomer check's molecules; (c)
+# SphereNet's batch (phase 8's).
+NATIVE_CHECKED = 1024
+ENANTIOMER_MOLECULES = 64
+SPHERE_BATCH = 128
 # The CLI epoch's evaluation at AID 1798's full counts while it ran eager,
 # batch by batch: 194 batches of 32 in 6.6 s on an NVIDIA H100 80GB HBM3 at
 # 700 W (PERF.md, section 5); phase 7(c) prints its own beside it.
@@ -432,6 +467,45 @@ def bound_ms(shapes):
     return max(t_ops, t_bytes) * 1e3, (
         "operations" if t_ops >= t_bytes else "bytes"
     )
+
+
+def graph_matrices(g):
+    """A molecule's dense adjacency [n, n] (int64) and edge features
+    [n, n, Fe] (float32, 0 where there is no edge)."""
+    import numpy as np
+
+    n, (src, dst) = g.num_nodes, g.edge_index
+    adj = np.zeros((n, n), np.int64)
+    adj[src, dst] = 1
+    feat = np.zeros((n, n, g.edge_attr.shape[1]), np.float32)
+    feat[src, dst] = g.edge_attr
+    return adj, feat
+
+
+def has_chiral_centre(g) -> bool:
+    """Whether a node of degree 4 has neighbours with pairwise-distinct
+    features (its mirror image then differs)."""
+    import numpy as np
+
+    src, dst = g.edge_index
+    for v in np.flatnonzero(np.bincount(dst, minlength=g.num_nodes) == 4):
+        x = g.x[src[dst == v]]
+        if len({row.tobytes() for row in x}) == 4:
+            return True
+    return False
+
+
+def as_double(batch):
+    """A kgnn GraphBatch with its floating-point fields in float64."""
+    import dataclasses
+
+    cast = lambda t: t.double() if t.is_floating_point() else t
+    return dataclasses.replace(
+        batch, x=cast(batch.x), p=cast(batch.p),
+        edge_attr=cast(batch.edge_attr), y=cast(batch.y),
+        **{f"deg{d}": dataclasses.replace(
+            b, nei_edge_attr=cast(b.nei_edge_attr))
+           for d, b in enumerate(batch.buckets(), start=1)})
 
 
 class Smoke:
@@ -3614,6 +3688,305 @@ class Smoke:
         self.mp_record["cli"] = {"seconds": secs, "launches": launched,
                                  "test": tested, "refused": message}
 
+    # ------------------------------------------------------------ phase 13
+    def phase_last(self, graphs, tmp):
+        """The last modules of the port (see the module doc): (a) the
+        native graph utilities, (b) enantiomer_separation, (c) SphereNet's
+        learned node vector, (d) the bf16 product option. Each main path
+        counts the scorer's launches from 0."""
+        t_phase = time.perf_counter()
+        self.last_record, self.last_launches = {}, {}
+        self.last_record["native"] = self.native_check(graphs)
+        self.last_record["enantiomer_separation"] = self.separation_check()
+        self.last_record["spherenet_node_vector"] = self.node_vector_check(
+            graphs[:POINT_MOLECULES["spherenet"]], tmp)
+        self.last_record["bf16"] = self.bf16_check(tmp)
+        secs = time.perf_counter() - t_phase
+        self.last_record["seconds"] = secs
+        log(f"  phase 13 took {secs:.1f} s")
+
+    def native_check(self, graphs):
+        """(a) of phase 13: the g++ build and the native graph utilities
+        against their numpy versions (host work; no device)."""
+        import numpy as np
+
+        from molkgnn_torch import native
+
+        t0 = time.perf_counter()
+        native.library()  # built on first use; raises if g++ fails
+        build_s = time.perf_counter() - t0
+        path = native.library_path()
+        if not native.have_native() or not path.exists() or (
+                path.parent != native.BUILD):
+            raise AssertionError(f"the native library is not at {path}")
+        mats = [graph_matrices(g) for g in graphs]
+
+        def run(fw, ge, items, keep):
+            kept = []
+            t0 = time.perf_counter()
+            for i, (adj, feat) in enumerate(items):
+                dist, pred = fw(adj)
+                out = ge(dist, pred, feat)
+                if i < keep:
+                    kept.append((dist, pred, out))
+            return kept, (time.perf_counter() - t0) * 1e6 / len(items)
+
+        lib_out, lib_ms = run(native.floyd_warshall, native.gen_edge_input,
+                              mats, NATIVE_CHECKED)
+        np_out, np_ms = run(native.floyd_warshall_numpy,
+                            native.gen_edge_input_numpy,
+                            mats[:NATIVE_CHECKED], NATIVE_CHECKED)
+        for i, (a, b) in enumerate(zip(lib_out, np_out)):
+            for x, y in zip(a, b):
+                if x.dtype != y.dtype or not np.array_equal(x, y):
+                    raise AssertionError(
+                        f"native against numpy differs at molecule {i}")
+        log(f"  (a) native: g++ build and load {build_s:.3f} s into "
+            f"{os.path.relpath(path)}; floyd_warshall + gen_edge_input on "
+            f"the host: library {lib_ms:.1f} ms per 1,000 molecules "
+            f"({len(mats)} of phase 3's), numpy {np_ms:.1f} ms per 1,000 "
+            f"(the first {NATIVE_CHECKED}); equal bit for bit on those "
+            f"{NATIVE_CHECKED}")
+        return {"build_s": build_s, "library_ms_per_1000": lib_ms,
+                "numpy_ms_per_1000": np_ms, "molecules": len(mats),
+                "checked": NATIVE_CHECKED}
+
+    def separation_check(self):
+        """(b) of phase 13: enantiomer_separation on the card against the
+        CPU, fp64 with the kernel off and fp32 on the grouped scorer."""
+        import numpy as np
+
+        from molkgnn_torch.analyses.embedding_compare import (
+            enantiomer_separation,
+        )
+        from molkgnn_torch.data.synthetic import tie_free_molgraph
+        from molkgnn_torch.graphs.batch import batch_graphs, spec_for_graphs
+
+        torch = self.torch
+        rng = np.random.default_rng(SEED + 13)
+        mols = []
+        while len(mols) < ENANTIOMER_MOLECULES:
+            g = tie_free_molgraph(rng)
+            if has_chiral_centre(g):
+                mols.append(g)
+        spec = spec_for_graphs(mols, 1)
+        pairs = [(f"m{i}", g) for i, g in enumerate(mols)]
+        weights = self.flagship(4, True, seed=SEED + 13).state_dict()
+        cos = {}
+        for form, use_kernel in (("fp64", False), ("fp32", True)):
+            model = self.flagship(4, use_kernel, seed=SEED + 13)
+            model.load_state_dict(weights)
+            enc = model.gnn_model.eval()
+            if form == "fp64":
+                enc = enc.double()
+                one = lambda g: as_double(batch_graphs([g], spec))
+            else:
+                one = lambda g: batch_graphs([g], spec)
+            cpu = enantiomer_separation(enc, one, pairs)
+            reset_launches()
+            card = enantiomer_separation(enc.cuda(), one, pairs)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            if form == "fp32":
+                self.last_launches["enantiomer"] = counts
+            cos[form] = (np.array([cpu[n] for n, _ in pairs]),
+                         np.array([card[n] for n, _ in pairs]), counts)
+        d64 = float(np.abs(cos["fp64"][1] - cos["fp64"][0]).max())
+        d32 = float(np.abs(cos["fp32"][1] - cos["fp32"][0]).max())
+        card32, counts = cos["fp32"][1], cos["fp32"][2]
+        want = 4 * 2 * len(pairs)
+        log(f"  (b) enantiomer_separation, flagship width, {len(pairs)} "
+            f"tie-free molecules with a chiral degree-4 centre: card against "
+            f"CPU max |diff| fp64 (kernel off) {d64:.3e} (limit 1e-9), fp32 "
+            f"(grouped scorer) {d32:.3e} (limit 1e-5); card fp32 cosines "
+            f"min {card32.min():.6f}, median {np.median(card32):.6f} (fp64 "
+            f"min {cos['fp64'][1].min():.6f}); scorer launches "
+            f"{counts} (want {want} grouped, 4 a forward; fp64 route "
+            f"{cos['fp64'][2]})")
+        if d64 > 1e-9 or d32 > 1e-5:
+            raise AssertionError("enantiomer_separation: the card disagrees")
+        if not card32.min() < 0.99999:
+            raise AssertionError("no mirror pair separates (cosine < 0.99999)")
+        if counts != {"grouped_support_score": want,
+                      "fused_support_score": 0} or any(
+                          cos["fp64"][2].values()):
+            raise AssertionError(f"enantiomer_separation launches {counts}")
+        return {"molecules": len(pairs), "fp64_max_diff": d64,
+                "fp32_max_diff": d32, "min_cos": float(card32.min()),
+                "median_cos": float(np.median(card32)), "launches": counts}
+
+    def node_vector_check(self, mols, tmp):
+        """(c) of phase 13: SphereNet(use_node_features=False) at its
+        published widths: eager steps in turns with the atom-table model,
+        fp64 card against CPU, a state_dict round trip."""
+        import dataclasses
+        import gc
+
+        import numpy as np
+
+        from molkgnn_torch.data.dataset import QSAR_METRICS, Dataset, _split
+        from molkgnn_torch.graphs.geometric import batch_points
+        from molkgnn_torch.models.registry import get_family
+        from molkgnn_torch.training.checkpoint import from_torch_state_dict
+        from molkgnn_torch.training.model import GNNModel
+        from molkgnn_torch.training.trainer import TrainConfig, Trainer
+
+        torch = self.torch
+        name, key = "spherenet", "gnn_model.init_e.node_embedding.node_embedding"
+        card = torch.cuda.get_device_name(0)
+        family = get_family(name)
+        mols = [dataclasses.replace(g) for g in mols]
+        spec = family.make_spec(mols, SPHERE_BATCH)
+        ds = Dataset(name, mols, _split(np.random.default_rng(SEED + 1),
+                                        len(mols)),
+                     list(QSAR_METRICS), "bce_with_logits")
+        forms = {"node_vector": {"use_node_features": False},
+                 "atom_table": {}}
+        trainers = {
+            form: Trainer(self.family_model(name, **opts), ds, spec,
+                          TrainConfig(batch_size=SPHERE_BATCH, scan_steps=1,
+                                      oversample=True, device_sampling=True,
+                                      progress=False,
+                                      log_dir=os.path.join(tmp, f"nv_{form}")),
+                          device="cuda")
+            for form, opts in forms.items()}
+        vec0 = trainers["node_vector"].model.state_dict()[key].clone()
+        for t in trainers.values():  # warm
+            t._device_step()
+        rates = {form: [] for form in trainers}
+        losses = {form: [] for form in trainers}
+        reset_launches()
+        for form in ("node_vector", "atom_table", "atom_table",
+                     "node_vector"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = [trainers[form]._device_step() for _ in range(3)]
+            torch.cuda.synchronize()
+            rates[form].append(3 * SPHERE_BATCH / (time.perf_counter() - t0))
+            losses[form] += [float(x) for x in out]
+        counts = launch_counts()
+        self.last_launches["spherenet_node_vector"] = counts
+        moved = float((trainers["node_vector"].model.state_dict()[key]
+                       - vec0).abs().max())
+        for form, r in rates.items():
+            log(f"  (c) SphereNet {form}, batch {SPHERE_BATCH}, eager on "
+                f"{card}: train {', '.join(f'{x:.1f}' for x in r)} graphs/s "
+                f"(3 steps a run, synchronised once, in turns)")
+        log(f"    node vector: first 3 losses {losses['node_vector'][:3]}; "
+            f"the vector moved by up to {moved:.3e} in its 7 steps; scorer "
+            f"launches {counts}")
+        if not np.isfinite([x for v in losses.values() for x in v]).all():
+            raise AssertionError("SphereNet node vector: a loss is not finite")
+        if not moved > 0 or any(counts.values()):
+            raise AssertionError(f"SphereNet node vector: the vector moved "
+                                 f"{moved}, launches {counts}")
+        trainers = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        spec8 = family.make_spec(mols[:8], 8)
+        b8 = batch_points(mols[:8], spec8)
+        b64 = dataclasses.replace(b8, pos=b8.pos.double(), y=b8.y.double())
+        m64 = self.family_model(name, torch.float64,
+                                use_node_features=False).eval()
+        with torch.no_grad():
+            want = m64(b64)[1].numpy()
+            got = m64.cuda()(b64.to("cuda"))[1].cpu().numpy()
+        scale = max(1.0, float(np.abs(want).max()))
+        d64 = float(np.abs(got - want).max()) / scale
+
+        model = self.family_model(name, use_node_features=False)
+        sd = model.state_dict()
+        ref = {"model." + k: v.clone() for k, v in sd.items()}
+        gen = torch.Generator().manual_seed(SEED + 1)
+        other = GNNModel(family.make_encoder(generator=gen,
+                                             use_node_features=False),
+                         generator=gen)
+        before = torch.equal(other.state_dict()[key], sd[key])
+        other.load_state_dict(from_torch_state_dict(other, ref,
+                                                    prefix="model."),
+                              strict=True)
+        round_trip = (not before and key in sd and set(other.state_dict())
+                      == set(sd) and all(torch.equal(v, sd[k]) for k, v in
+                                         other.state_dict().items())
+                      and not any(k.startswith("gnn_model.init_e.emb")
+                                  for k in sd))
+        log(f"    8 molecules, fp64 card against CPU {d64:.3e} (relative to "
+            f"max |value| {scale:.3e}; limit 1e-9); state_dict through "
+            f"from_torch_state_dict into a model of another seed: "
+            f"{'equal' if round_trip else 'DIFFERENT'} ({len(sd)} keys, "
+            f"{key} included)")
+        if d64 > 1e-9 or not round_trip:
+            raise AssertionError("SphereNet node vector: card or bridge fails")
+        return {"graphs_per_s": rates, "losses": losses["node_vector"],
+                "vector_moved": moved, "fp64_rel_diff": d64,
+                "launches": counts}
+
+    def bf16_check(self, tmp):
+        """(d) of phase 13: the flagship's bf16 products at batch 1024 on
+        the card against the CPU on both routes, and replayed train
+        graphs/s against fp32."""
+        import numpy as np
+
+        from molkgnn_torch.data.dataset import make_tie_free_dataset
+        from molkgnn_torch.graphs.batch import batch_graphs, spec_for_graphs
+        from molkgnn_torch.training.trainer import TrainConfig, Trainer
+
+        torch = self.torch
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("TF32 is on: cuBLAS would round the fp32 "
+                                 "products")
+        bf16 = torch.bfloat16
+        ds = getattr(self, "tie_free_data", None) or make_tie_free_dataset(
+            NUM_MOLECULES, NUM_MOLECULES * 3 // 4, seed=SEED)
+        spec = spec_for_graphs(ds.graphs, BATCH)
+        batch = batch_graphs(ds.graphs[:BATCH], spec)
+        dev = batch.to("cuda")
+        rec = {}
+        for route, use_kernel in (("kernel", True), ("plain", False)):
+            model = self.flagship(4, use_kernel, seed=SEED + 14, dropout=0.0,
+                                  matmul_dtype=bf16).eval()
+            with torch.no_grad():
+                want = [t.numpy() for t in model(batch)]
+                model.cuda()
+                reset_launches()
+                got = [t.cpu().numpy() for t in model(dev)]
+                counts = launch_counts()
+                model.gnn_model.gnn.layers.apply(
+                    lambda m: setattr(m, "matmul_dtype", None))
+                full = [t.cpu().numpy() for t in model(dev)]
+            diff = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+            gap = max(float(np.abs(f - g).max()) for f, g in zip(full, got))
+            tol = 1e-5 if use_kernel else 1e-4
+            close = all(np.allclose(g, w, rtol=tol, atol=tol)
+                        for g, w in zip(got, want))
+            log(f"  (d) bf16 products, flagship at batch {BATCH}, {route} "
+                f"route: card against CPU max |diff| {diff:.3e} (within "
+                f"{tol:g}: {close}); against the card's fp32 products "
+                f"{gap:.3e} (want > 1e-4); scorer launches {counts}")
+            want_launches = {"grouped_support_score": 4 if use_kernel else 0,
+                             "fused_support_score": 0}
+            if not close or gap <= 1e-4 or counts != want_launches:
+                raise AssertionError(f"bf16 {route} route fails")
+            if use_kernel:
+                self.last_launches["bf16_eval"] = counts
+            rec[route] = {"max_diff": diff, "fp32_gap": gap,
+                          "launches": counts}
+        trainers = {}
+        for form, opts in (("bf16", {"matmul_dtype": bf16}), ("fp32", {})):
+            model = self.flagship(4, True, seed=SEED + 14, dropout=0.0,
+                                  **opts)
+            trainers[form] = (Trainer(
+                model, ds, spec, TrainConfig(
+                    batch_size=BATCH, progress=False, scan_steps=16,
+                    device_sampling=True,
+                    log_dir=os.path.join(tmp, f"bf16_{form}")),
+                device="cuda"), 4)
+        rec["train_graphs_per_s"] = self.epoch_rates(
+            trainers, ("bf16", "fp32", "fp32", "bf16"),
+            f"(d) replayed flagship b{BATCH}, device sampling,")
+        return rec
+
     # ------------------------------------------------------------ record
     def kernel_record(self):
         entries = []
@@ -3706,6 +4079,18 @@ class Smoke:
         }
         for path, what in mp_paths.items():
             new_paths[path] = (self.mp_launches[path], what)
+        last_paths = {
+            "enantiomer": "phase 13(b): enantiomer_separation at the "
+            "flagship's width, fp32, 64 molecules and their mirror images "
+            "one at a time, 4 a forward",
+            "spherenet_node_vector": "phase 13(c): SphereNet(use_node_"
+            "features=False) eager train steps: not on its path (0, "
+            "counted)",
+            "bf16_eval": "phase 13(d): the flagship with matmul_dtype="
+            "torch.bfloat16, an eval forward at batch 1024, 4",
+        }
+        for path, what in last_paths.items():
+            new_paths[path] = (self.last_launches[path], what)
         for name in ("grouped_support_score", "fused_support_score"):
             if name == "grouped_support_score":
                 (l0, s0, e0) = self.per_request[(name, "layer 0")]
@@ -3998,6 +4383,10 @@ def main() -> int:
             phase = "model parallel"
             log("[12] model parallel on torch.distributed")
             smoke.phase_mp(tmp)
+            phase = "last modules"
+            log("[13] native utilities, enantiomer_separation, SphereNet's "
+                "node vector, bf16 products")
+            smoke.phase_last(graphs, tmp)
         record = smoke.kernel_record()
     except Exception:
         traceback.print_exc()
@@ -4016,7 +4405,8 @@ def main() -> int:
                       "chironet": smoke.chiro_record,
                       "side": smoke.side_record,
                       "data_parallel": smoke.dp_record,
-                      "model_parallel": smoke.mp_record}),
+                      "model_parallel": smoke.mp_record,
+                      "last_modules": smoke.last_record}),
           flush=True)
     print(json.dumps(record), flush=True)
     print(smi, flush=True)

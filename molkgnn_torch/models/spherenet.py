@@ -23,8 +23,11 @@ The modules carry the reference checkpoint's names (``emb.dist_emb.freq``,
 ``init_e``, ``init_v``, ``update_es.{l}``, ``update_vs.{l}``). Init:
 glorot-orthogonal (scale 2) where the reference resets, torch's Linear
 default in init_e's ``lin_rbf_0`` and ``lin``, the embedding
-uniform(-sqrt 3, sqrt 3); all drawn from ``generator``. Atom embeddings
-only (the JAX package's ``use_node_features=False`` is not ported).
+uniform(-sqrt 3, sqrt 3); all drawn from ``generator``. With
+``use_node_features=False`` one learned vector of width ``hidden_channels``
+(init N(0, 1)) is broadcast to every node in place of the atom-type table;
+its key, ``init_e.node_embedding.node_embedding``, is the one the JAX
+package's importer maps its ``init_e/node_embedding`` leaf to.
 """
 
 from __future__ import annotations
@@ -86,16 +89,30 @@ class _Emb(nn.Module):
         self.dist_emb = BesselBasis(num_radial)
 
 
-class InitE(nn.Module):
-    def __init__(self, num_radial, hidden, gen):
+class _NodeVector(nn.Module):
+    def __init__(self, hidden, gen):
         super().__init__()
-        self.emb = uniform_embedding(95, hidden, gen)
+        self.node_embedding = nn.Parameter(torch.randn(hidden, generator=gen))
+
+
+class InitE(nn.Module):
+    def __init__(self, num_radial, hidden, gen, use_node_features=True):
+        super().__init__()
+        if use_node_features:
+            self.emb = uniform_embedding(95, hidden, gen)
+        else:
+            self.node_embedding = _NodeVector(hidden, gen)
+        self.use_node_features = use_node_features
         self.lin_rbf_0 = TorchLinear(num_radial, hidden, gen)
         self.lin = TorchLinear(3 * hidden, hidden, gen)
         self.lin_rbf_1 = glorot_linear(num_radial, hidden, gen, bias=False)
 
     def forward(self, z, rbf, i, j):
-        x = self.emb(z)
+        if self.use_node_features:
+            x = self.emb(z)
+        else:
+            vec = self.node_embedding.node_embedding
+            x = vec[None, :].expand(z.shape[0], -1)
         rbf0 = swish(self.lin_rbf_0(rbf))
         e1 = swish(self.lin(torch.cat(
             [take_rows(x, i), take_rows(x, j), rbf0], dim=-1)))
@@ -200,6 +217,7 @@ class SphereNet(nn.Module):
         num_before_skip: int = 1,
         num_after_skip: int = 2,
         num_output_layers: int = 3,
+        use_node_features: bool = True,
         generator: torch.Generator | None = None,
     ):
         super().__init__()
@@ -209,7 +227,7 @@ class SphereNet(nn.Module):
         self.out_channels = out_channels
         h = hidden_channels
         self.emb = _Emb(num_radial)
-        self.init_e = InitE(num_radial, h, gen)
+        self.init_e = InitE(num_radial, h, gen, use_node_features)
         self.init_v = UpdateV(h, out_emb_channels, out_channels,
                               num_output_layers, gen)
         self.update_es = nn.ModuleList(

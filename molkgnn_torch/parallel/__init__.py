@@ -7,6 +7,12 @@ halo shards on a 2D mesh), ``collectives.py`` (the differentiable exchange
 and sum they run on), ``multihost.py`` (joining a launched world),
 ``launch.py`` (starting one) and the deprecated, eval-only
 ``edge_partition.py`` (not exported here, as in the JAX package).
+
+Two names of the JAX package's exports have no namesake here: pmap's
+``shard_train_step`` is the ``Trainer``'s step with ``GradSync`` (the
+step's one all-reduce, given a ``mesh``), and ``stack_shards`` is
+``rank_rows`` (each rank takes its rows of a batch; nothing is stacked on
+a leading device axis).
 """
 
 from molkgnn_torch.parallel.data_parallel import (

@@ -1138,3 +1138,71 @@ def test_cuda_world_one_halo_replayed_equals_eager(tmp_path):
         assert runs["graphed"][1] == 2 * 8 + 2
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_spherenet_learned_node_vector_fp64_matches_cpu():
+    """SphereNet(use_node_features=False) in float64 on the card against
+    the CPU, same weights and batch: within 1e-9."""
+    _needs_card()
+    import dataclasses
+
+    from molkgnn_torch.graphs.geometric import batch_points
+    from molkgnn_torch.models.spherenet import SphereNet
+    from molkgnn_torch.training.model import GNNModel
+
+    graphs, spec, _ = _point_setup("spherenet")
+    gen = torch.Generator().manual_seed(13)
+    model = GNNModel(SphereNet(cutoff=POINT_CUTOFF, use_node_features=False,
+                               generator=gen, **POINT_SMALL["spherenet"]),
+                     ffn_dropout_rate=0.0, generator=gen)
+    assert "gnn_model.init_e.node_embedding.node_embedding" in (
+        model.state_dict())
+    batch = batch_points(graphs[:8], spec)
+    batch = dataclasses.replace(batch, pos=batch.pos.double(),
+                                y=batch.y.double())
+    model = model.double().eval()
+    with torch.no_grad():
+        want = model(batch)
+        got = model.cuda()(batch.to("cuda"))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float64
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-9,
+                                   atol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_cuda_bf16_flagship_forward_matches_cpu(use_kernel):
+    """The flagship (4 layers) with matmul_dtype=torch.bfloat16 on the
+    card against the CPU, same weights, 64 tie-free molecules: the eval
+    embeddings within 1e-5 on the kernel route (only the edge score, on
+    the raw edge features, is rounded) and within 1e-4 on the plain route,
+    where the card's last-bit differences in the normalised node features
+    flip some bf16 roundings (tests/test_torch_port_halo_partition.py::
+    test_bf16_products_amplify_last_bit_changes: more than 1e-5 on the
+    CPU alone); both more than 1e-4 from the fp32 products. With TF32 off,
+    cuBLAS's fp32 products on the rounded operands differ from the CPU's
+    only in summation order."""
+    _needs_card()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    from molkgnn_torch.graphs.batch import batch_graphs, spec_for_graphs
+    from molkgnn_torch.models.kgnn import MolKGNNNet
+
+    graphs = _tie_free_graphs(64, seed=14)
+    batch = batch_graphs(graphs, spec_for_graphs(graphs, 64))
+    model = MolKGNNNet(use_kernel=use_kernel, matmul_dtype=torch.bfloat16,
+                       generator=torch.Generator().manual_seed(15)).eval()
+    with torch.no_grad():
+        want = model(batch)
+        card = model.cuda()
+        before = ss.grouped_support_score.launches
+        got = card(batch.to("cuda"))
+        torch.cuda.synchronize()
+        launched = ss.grouped_support_score.launches - before
+        card.gnn.layers.apply(lambda m: setattr(m, "matmul_dtype", None))
+        full = card(batch.to("cuda"))
+    assert launched == (4 if use_kernel else 0)
+    tol = 1e-5 if use_kernel else 1e-4
+    torch.testing.assert_close(got.cpu(), want, rtol=tol, atol=tol)
+    assert float((full - got).abs().max()) > 1e-4

@@ -9,7 +9,11 @@ in one process, against the JAX package.
     Trainer's do.
   * ``matmul_dtype=torch.bfloat16`` (fp32) against the JAX model's
     ``matmul_dtype="bfloat16"`` on the same weights: within 1e-6, the
-    same rounded operands summed in another order.
+    same rounded operands summed in another order. Rounding to bf16 turns
+    a last-bit change of the normalised operands into a bf16 step: on the
+    plain route (the support score in bf16 too) the flagship's embeddings
+    then move by more than 1e-5, against under 1e-6 with fp32 products
+    (why the card's plain bf16 route is held to the CPU at 1e-4).
   * ``psum_group`` over a world of one equals no group, bit for bit.
   * The CLI's hybrid divisibility message is the JAX CLI's.
   * What the JAX halo forward does with fixed kernel sets and with
@@ -198,6 +202,51 @@ def test_bf16_products_match_jax():
         full = port(tb).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
     assert np.abs(full - got).max() > 1e-4
+
+
+@pytest.mark.parametrize("route", ["plain", "kernel"])
+def test_bf16_products_amplify_last_bit_changes(monkeypatch, route):
+    """The flagship (4 layers) on 64 tie-free molecules, its operands
+    normalised as usual and then in float64 (each element within four
+    float32 ulps of the usual, as the card's may differ): the embeddings
+    move by
+    under 1e-6 with fp32 products; with bf16 products by more than 1e-5
+    on the plain route and by under 1e-5 on the kernel route, whose
+    support score stays fp32 (only the edge score, on the raw edge
+    features, is rounded)."""
+    from molkgnn_torch.models import kgnn as t_kgnn
+    from molkgnn_torch.ops import similarity
+
+    rng = np.random.default_rng(14)
+    graphs = [tie_free_molgraph(rng) for _ in range(64)]
+    batch = t_batch.batch_graphs(graphs, t_batch.spec_for_graphs(graphs, 64))
+    usual = similarity.normalize_rows
+
+    def wide(t):
+        return usual(t.double()).to(t.dtype)
+
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (1000, 28)).astype(np.float32))
+    ulp = torch.from_numpy(np.spacing(np.maximum(
+        usual(x).abs().numpy(), wide(x).abs().numpy())))
+    assert torch.all((wide(x) - usual(x)).abs() <= 4 * ulp)
+    assert not torch.equal(wide(x), usual(x))
+    moved = {}
+    for dtype in (None, torch.bfloat16):
+        model = TNet(use_kernel=route == "kernel", matmul_dtype=dtype,
+                     generator=torch.Generator().manual_seed(15)).eval()
+        outs = []
+        for fn in (usual, wide):
+            monkeypatch.setattr(similarity, "normalize_rows", fn)
+            monkeypatch.setattr(t_kgnn, "normalize_rows", fn)
+            with torch.no_grad():
+                outs.append(model(batch))
+        moved[dtype] = float((outs[0] - outs[1]).abs().max())
+    assert moved[None] < 1e-6
+    if route == "plain":
+        assert moved[torch.bfloat16] > 1e-5
+    else:
+        assert moved[None] < moved[torch.bfloat16] < 1e-5
 
 
 def test_psum_group_of_one_equals_none():

@@ -271,6 +271,47 @@ def test_state_dict_round_trip(name):
         assert torch.equal(got[k], sd[k])
 
 
+def test_spherenet_learned_node_vector_matches_jax_fp64():
+    """SphereNet(use_node_features=False): one learned vector in place of
+    the atom table, under the key the JAX importer maps its
+    ``init_e/node_embedding`` leaf to. The port's seeded weights pass the
+    JAX importer (no key missing or left over) and come back through
+    ``from_jax_variables`` unchanged; the fp64 forward within 1e-9."""
+    cfg = FAMILIES["spherenet"][0]
+    _, _, _, batch, jbatch, _, _ = _family("spherenet")
+    jmodel = JGNNModel(encoder=JSphereNet(cutoff=CUTOFF,
+                                          use_node_features=False, **cfg),
+                       task_dim=1, ffn_dropout_rate=0.0)
+    template = jax.tree.map(
+        lambda a: np.zeros(a.shape, a.dtype),
+        jax.eval_shape(jmodel.init, jax.random.key(0), jbatch))
+    gen = torch.Generator().manual_seed(8)
+    model = GNNModel(SphereNet(cutoff=CUTOFF, use_node_features=False,
+                               generator=gen, **cfg),
+                     ffn_dropout_rate=0.0, generator=gen)
+    sd = model.state_dict()
+    assert sd["gnn_model.init_e.node_embedding.node_embedding"].shape == (16,)
+    assert not any(k.startswith("gnn_model.init_e.emb") for k in sd)
+    v = j_ckpt.from_torch_state_dict(template, sd)
+    np.testing.assert_array_equal(
+        np.asarray(v["params"]["encoder"]["init_e"]["node_embedding"]),
+        sd["gnn_model.init_e.node_embedding.node_embedding"].numpy())
+    back = t_ckpt.from_jax_variables(v)
+    assert set(back) == set(sd)
+    for k in sd:
+        assert torch.equal(back[k], sd[k]), k
+
+    jb = dataclasses.replace(jbatch, pos=np.asarray(jbatch.pos, np.float64),
+                             y=np.asarray(jbatch.y, np.float64))
+    want = _x64(lambda: jax.device_get(jax.jit(jmodel.apply)(_as64(v), jb)))
+    with torch.no_grad():
+        got = model.double().eval()(_double(batch))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float64 and np.asarray(w).dtype == np.float64
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-9,
+                                   atol=1e-9)
+
+
 @pytest.mark.parametrize("name", NAMES)
 def test_trainer_scan_steps_on_cpu(name, tmp_path):
     """Trainer.fit with scan_steps=4 (K eager steps on the CPU) equals

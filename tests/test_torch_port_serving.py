@@ -91,7 +91,8 @@ def test_port_imports_no_jax():
     """Importing the port (every module) and chip_smoke.py loads neither
     jax/flax/optax, nor scikit-learn, nor the JAX package, even where they
     are importable: a finder that refuses them is installed first, and
-    sys.modules is checked afterwards."""
+    sys.modules is checked afterwards. The imports load no CUDA or native
+    library either."""
     code = """
 import sys
 
@@ -164,9 +165,23 @@ import molkgnn_torch.parallel.collectives
 import molkgnn_torch.parallel.halo
 import molkgnn_torch.parallel.hybrid
 import molkgnn_torch.parallel.edge_partition
+import molkgnn_torch.native
+import molkgnn_torch.analyses
+import molkgnn_torch.data
+import molkgnn_torch.experiments
+import molkgnn_torch.graphs
+import molkgnn_torch.models
+import molkgnn_torch.ops
+import molkgnn_torch.serving
+import molkgnn_torch.training
+from molkgnn_torch.training import *
+from molkgnn_torch.analyses.embedding_compare import enantiomer_separation
 import chip_smoke
 loaded = sorted(m for m in sys.modules if banned(m))
 assert not loaded, loaded
+import molkgnn_torch.ops._build
+assert not molkgnn_torch.ops._build._loaded  # no CUDA library loaded
+assert molkgnn_torch.native._lib is None  # nor the native one
 print("clean")
 """
     env = dict(os.environ, PYTHONPATH=REPO)
