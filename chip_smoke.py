@@ -256,6 +256,29 @@ Phases, in order; any failure exits non-zero and prints no result line:
               than 1e-4 from the card's fp32-product forward; replayed train
               graphs/s (scan_steps=16, device sampling) bf16 against fp32
               in turns.
+ 14. repeat:  the fixed-order segment sum (ops/segment.py,
+              csrc/segment_sum.cu) through which every sum of two or more
+              terms runs on the card. (a) At the flagship's cover shapes
+              (batch 1024 of phase 3's molecules: message passing and its
+              transpose at width 110, pooling at 32, the degree-4
+              neighbour gather's gradient), fp32 and fp64, the kernel
+              bit-equal to its plain version on CPU copies (else the
+              worst element is printed); kernel, plan, index_add_ and
+              plain times by CUDA events, and the byte bound (each
+              distinct gathered row read once). (b) On phase
+              3's molecules, ties included: three flagship forwards
+              bit-equal (5 segment-sum launches each); screen_library
+              against predict_graphs, the largest gap printed; two eager
+              epochs and two replayed epochs (scan_steps=8, dropout 0.25)
+              from one state, each pair bit-equal, eager against replayed
+              within 1e-5. (c) SchNet, DimeNet++, SphereNet and ChIRoNet
+              at their phase 8 and 9 batches: forward and backward twice,
+              predictions and gradients bit-equal. (d) The kernels of two
+              profiled replays of the flagship step, printed: none of
+              index_add_'s, index_put_'s or scatter_add_'s.
+              The segment sum's launches are counted from 0 on every path
+              that reads the scorer's counts (launch_counts()); phases 4
+              and 5's main paths and 14's must launch it.
 
 The last lines are the records of the phases' numbers, the kernel record
 ({"kernels": [...]}), the card's name and power limit, and
@@ -281,6 +304,16 @@ REPLACES = {
     "grouped_support_score": "molkgnn_tpu/ops/pallas_kernels.py:223",
 }
 KERNEL_SOURCE = "molkgnn_torch/csrc/support_score.cu"
+SEGMENT_SOURCE = "molkgnn_torch/csrc/segment_sum.cu"
+# The segment sum replaces no TPU kernel: it sums in a fixed order what the
+# JAX package sums with XLA's segment_sum.
+SEGMENT_REPLACES = ("no TPU kernel: index_add_'s atomics; the JAX package's "
+                    "XLA segment_sum, molkgnn_tpu/ops/segment.py:31")
+# Phase 14(d): substrings of the float-atomic sums' kernels (index_add_,
+# index_put_'s sorting backward, scatter_add_, embedding's backward) as the
+# profiler names them.
+ATOMIC_SUMS = ("indexFunc", "index_put", "indexing_backward", "ReduceAdd",
+               "embedding_backward", "atomic")
 # Substring of both __global__ functions of the scorer's launch (the B
 # packing and the scorer), as the profiler names them.
 KERNEL_NAME = "support_score"
@@ -342,18 +375,30 @@ def log(*args):
 
 
 def reset_launches():
-    """Set every scorer wrapper's launch count to 0."""
+    """Set every counted wrapper's launch count to 0: the scorer's and the
+    segment sum's."""
+    from molkgnn_torch.ops import segment as sg
     from molkgnn_torch.ops import support_score as ss
 
     for name in REPLACES:
         getattr(ss, name).launches = 0
+    sg.segment_sum.launches = 0
 
 
 def launch_counts():
-    """Each scorer wrapper's launch count, by wrapper name."""
+    """Each counted wrapper's launch count, by wrapper name: the scorer's
+    two and "segment_sum"."""
+    from molkgnn_torch.ops import segment as sg
     from molkgnn_torch.ops import support_score as ss
 
-    return {name: getattr(ss, name).launches for name in REPLACES}
+    counts = {name: getattr(ss, name).launches for name in REPLACES}
+    counts["segment_sum"] = sg.segment_sum.launches
+    return counts
+
+
+def scorer_launches(counts):
+    """The scorer wrappers' part of a ``launch_counts()`` dict."""
+    return {name: counts[name] for name in REPLACES}
 
 
 def nvidia_smi_line() -> str:
@@ -511,6 +556,7 @@ def as_double(batch):
 class Smoke:
     def __init__(self, torch):
         self.torch = torch
+        self.family_batches = {}
 
     def flagship(self, num_layers, use_kernel, seed=SEED, dropout=None,
                  **options):
@@ -711,6 +757,7 @@ class Smoke:
         from molkgnn_torch.data.synthetic import tie_free_molgraph
         from molkgnn_torch.graphs.batch import batch_graphs, spec_for_graphs
         from molkgnn_torch.models.kgnn import KernelConv
+        from molkgnn_torch.ops import segment as sg
         from molkgnn_torch.ops import support_score as ss
         from molkgnn_torch.serving.predictor import Predictor
 
@@ -725,19 +772,23 @@ class Smoke:
         sd = {k: v.clone() for k, v in model.state_dict().items()}
         served = Predictor(model, sd, spec, device="cuda")
         chunks = -(-len(graphs) // spec.num_graphs)
-        ss.grouped_support_score.launches = 0
-        ss.fused_support_score.launches = 0
+        reset_launches()
         scores = served.predict_graphs(graphs)
         launches = {
             "grouped_support_score": ss.grouped_support_score.launches,
             "fused_support_score": ss.fused_support_score.launches,
         }
-        log(f"  main path: {chunks} chunks, launches {launches}")
+        self.main_segment_launches = sg.segment_sum.launches
+        log(f"  main path: {chunks} chunks, launches {launches}, segment "
+            f"sum {self.main_segment_launches} (want 5 a chunk)")
         if launches["grouped_support_score"] != 4 * chunks:
             raise AssertionError(
                 f"grouped scorer launched {launches['grouped_support_score']}"
                 f" times, want 4 x {chunks}"
             )
+        if self.main_segment_launches != 5 * chunks:
+            raise AssertionError("the segment sum did not launch 5 times a "
+                                 "chunk (4 layers and the pooling)")
         if scores.shape != (len(graphs),) or not np.isfinite(scores).all():
             raise AssertionError("scores are not finite or misshapen")
         self.main_launches = launches
@@ -988,6 +1039,7 @@ class Smoke:
 
         from molkgnn_torch.data.dataset import make_synthetic_dataset
         from molkgnn_torch.graphs.batch import spec_for_graphs
+        from molkgnn_torch.ops import segment as sg
         from molkgnn_torch.ops import support_score as ss
         from molkgnn_torch.training.trainer import TrainConfig, Trainer
 
@@ -1005,8 +1057,7 @@ class Smoke:
         trainer = Trainer(self.flagship(4, True), ds, spec, cfg)
         if trainer.device.type != "cuda":
             raise AssertionError("the Trainer did not default to the card")
-        ss.grouped_support_score.launches = 0
-        ss.fused_support_score.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         history = trainer.fit()
         tested = trainer.test()
@@ -1015,6 +1066,9 @@ class Smoke:
             "grouped_support_score": ss.grouped_support_score.launches,
             "fused_support_score": ss.fused_support_score.launches,
         }
+        self.train_segment_launches = sg.segment_sum.launches
+        if not self.train_segment_launches:
+            raise AssertionError("the segment sum did not launch in training")
         eval_batches = (
             cfg.max_epochs * -(-len(ds.split["valid"]) // BATCH)
             + len(tested) * -(-len(ds.split["test"]) // BATCH)
@@ -1022,7 +1076,8 @@ class Smoke:
         want = 4 * trainer.step + 4 * eval_batches
         log(f"  main path: fit + test in {secs:.2f} s, {trainer.step} "
             f"optimizer steps, {eval_batches} evaluation batches, "
-            f"launches {launches} (want {want} grouped)")
+            f"launches {launches} (want {want} grouped), segment sum "
+            f"{self.train_segment_launches}")
         if launches["grouped_support_score"] != want:
             raise AssertionError("grouped launches are not 4 per step and "
                                  "per evaluation batch")
@@ -1429,12 +1484,11 @@ class Smoke:
 
         def retest(name, out, tested):
             """--test on the run's root: the same tags, labels and, within
-            1e-4, the same test predictions (test_sample_scores_{tag}.log)
-            as the fit's. The metrics are reported, not held: sums by
-            atomics differ in their last bits from run to run, and
-            logAUC[0.001, 0.1] ranks a handful of top-scored molecules among
-            thousands of copies of 200 conformers, whose order a last-bit
-            change can swap."""
+            1e-4, the same test predictions (test_sample_scores_{tag}.log,
+            written as text) as the fit's; the metrics are reported. The
+            sums run in a fixed order (ops/segment.py), so the restored
+            checkpoints score as the fit's did; phase 14(b) holds the
+            card's repeated runs bit for bit."""
             logs = os.path.join(out, "logs")
 
             def scores():
@@ -1590,8 +1644,8 @@ class Smoke:
                                   - scores[:len(graphs)]).max())
         log(f"  screen_library against predict_graphs on the first "
             f"{len(graphs)}: max |diff| {gap:.3e}; across the "
-            f"{SCREEN_REPEAT} copies {repeat_gap:.3e} (not held: these "
-            f"molecules have ties)")
+            f"{SCREEN_REPEAT} copies {repeat_gap:.3e} (reported; phase "
+            f"14(b) prints the gap on these molecules with ties)")
         self.screen_launches = counts
 
         batches = [batch_graphs(graphs[s:s + BATCH], spec).to("cuda")
@@ -1802,7 +1856,8 @@ class Smoke:
         self.points_launches["quality"] = launch_counts()
         log(f"  scorer launches on the point paths (each counted from 0): "
             f"{self.points_launches}")
-        if any(v for c in self.points_launches.values() for v in c.values()):
+        if any(v for c in self.points_launches.values()
+               for v in scorer_launches(c).values()):
             raise AssertionError("a scorer kernel launched on a point path")
         secs = time.perf_counter() - t_phase
         self.points_record["seconds"] = secs
@@ -1921,6 +1976,7 @@ class Smoke:
         else:
             raise AssertionError(f"{name}: no batch fits")
         B = spec.num_graphs
+        self.family_batches[name] = (mols, spec)  # for phase 14(c)
         rec.update(batch=B, caps=caps, peak_bytes=peak, probes=probes)
         log(f"    batch {B} (peak {peak / 2**30:.2f} GiB < "
             f"{POINT_MEMORY / 2**30:.0f} GiB)")
@@ -2061,7 +2117,8 @@ class Smoke:
             want_txt = "> 1e-6 absolute: the torsion sees the mirror"
         else:
             ok = mirror <= 1e-5
-            want_txt = "<= 1e-5 relative: invariant up to the atomics"
+            want_txt = ("<= 1e-5 relative: invariant up to the "
+                        "rounding of the mirrored geometry")
         log(f"    (f) mirror image on the card: max relative diff "
             f"{mirror:.3e} (want {want_txt})")
         if not ok:
@@ -2170,7 +2227,8 @@ class Smoke:
             self.chiro_launches[path] = launch_counts()
         log(f"  (g) scorer launches on the ChIRoNet paths (each counted "
             f"from 0): {self.chiro_launches}")
-        if any(v for c in self.chiro_launches.values() for v in c.values()):
+        if any(v for c in self.chiro_launches.values()
+               for v in scorer_launches(c).values()):
             raise AssertionError("a scorer kernel launched on a ChIRoNet "
                                  "path")
         secs = time.perf_counter() - t_phase
@@ -2269,6 +2327,7 @@ class Smoke:
         else:
             raise AssertionError(f"{name}: no batch fits")
         B = spec.num_graphs
+        self.family_batches[name] = (mols, spec)  # for phase 14(c)
         rec.update(batch=B, caps=caps, peak_bytes=peak, probes=probes)
         log(f"    batch {B} (peak {peak / 2**30:.2f} GiB < "
             f"{POINT_MEMORY / 2**30:.0f} GiB)")
@@ -2550,10 +2609,11 @@ class Smoke:
             return float(np.max(np.abs(a - b) / np.abs(b)))
 
         # The replayed fit is the phase's main path, counted. Two eager fits
-        # from the same weights and seeds stand beside it: on these
-        # molecules (neighbours with bitwise-equal features) the argmax
-        # follows index_add_'s atomics, so eager runs differ from each other
-        # too; the 1e-5 comparison is held on tie-free molecules below.
+        # from the same weights and seeds stand beside it, reported: on
+        # these molecules (neighbours with bitwise-equal features) the
+        # argmax follows any last-bit change; the sums now run in a fixed
+        # order and phase 14(b) holds eager against replayed on them. The
+        # 1e-5 comparison is held on tie-free molecules below.
         replayed = trainer(tight, balanced_batches=True, scan_steps=16)
         reset_launches()
         t0 = time.perf_counter()
@@ -2577,8 +2637,9 @@ class Smoke:
             f" 0 fused); valid AUC {[round(e['AUC'], 4) for e in history]};"
             f" first 3 losses {got[:3]}, max relative difference from an "
             f"eager run {rel:.3e}, between two eager runs {rel_eager:.3e} "
-            f"(phase 3's molecules: argmax ties, not held)")
-        if launches != {"grouped_support_score": want,
+            f"(phase 3's molecules: argmax ties, reported; phase 14(b) "
+            f"holds them)")
+        if scorer_launches(launches) != {"grouped_support_score": want,
                         "fused_support_score": 0}:
             raise AssertionError(f"balanced launches {launches}, want {want}")
         if not all(np.isfinite(t.step_losses).all()
@@ -2806,7 +2867,7 @@ class Smoke:
             f"{[round(x, 6) for x in losses]}; launches {launches} (want "
             f"{want} grouped); fixed tensors bit-equal {equal}; score "
             f"weights moved by {moved}")
-        if launches != {"grouped_support_score": want,
+        if scorer_launches(launches) != {"grouped_support_score": want,
                         "fused_support_score": 0}:
             raise AssertionError(f"fixed-kernel launches {launches}")
         if not equal or min(moved.values()) <= 0:
@@ -2880,7 +2941,7 @@ class Smoke:
         if missing or not finite or not np.isfinite(history[0]["train_loss"]):
             raise AssertionError(f"balanced CLI: missing {missing}, "
                                  f"metrics {tested}")
-        if launches != {"grouped_support_score": want,
+        if scorer_launches(launches) != {"grouped_support_score": want,
                         "fused_support_score": 0}:
             raise AssertionError(f"balanced CLI launches {launches}")
         try:
@@ -3038,7 +3099,7 @@ class Smoke:
             torch.cuda.synchronize()
             counts = launch_counts()
             self.dp_launches[name] = counts
-            if counts != {"grouped_support_score": 4 * len(steps),
+            if scorer_launches(counts) != {"grouped_support_score": 4 * len(steps),
                           "fused_support_score": 0}:
                 raise AssertionError(f"{name}: launches {counts} for "
                                      f"{len(steps)} steps")
@@ -3104,7 +3165,7 @@ class Smoke:
             if i == 0:  # the DP main path, counted
                 counts = launch_counts()
                 self.dp_launches["dp_screen"] = counts
-                if counts != {"grouped_support_score": 4 * blocks,
+                if scorer_launches(counts) != {"grouped_support_score": 4 * blocks,
                               "fused_support_score": 0}:
                     raise AssertionError(f"DP screening launches {counts}")
         card = torch.cuda.get_device_name(0)
@@ -3130,7 +3191,7 @@ class Smoke:
         if gap > 1e-5 or eval_gap > 1e-5:
             raise AssertionError("DP screening or evaluation differs")
         want_eval = 4 * -(-len(ids) // BATCH)
-        if counts != {"grouped_support_score": want_eval,
+        if scorer_launches(counts) != {"grouped_support_score": want_eval,
                       "fused_support_score": 0}:
             raise AssertionError(f"DP evaluation launches {counts}")
         self.dp_record["screen"] = {
@@ -3207,7 +3268,8 @@ class Smoke:
             raise AssertionError("2-rank gloo DP differs from the plain DP "
                                  "step or single-device evaluation")
         want = 4 * (3 + 2)  # 3 steps, 2 of the 4 padded blocks
-        if ranks["launches"] != {"grouped_support_score": want,
+        if scorer_launches(ranks["launches"]) != {
+                "grouped_support_score": want,
                                  "fused_support_score": 0}:
             raise AssertionError(f"rank 0 launches {ranks['launches']}")
         self.dp_launches["dp_two_ranks"] = ranks["launches"]
@@ -3272,8 +3334,8 @@ class Smoke:
         if ("ranks: 1" not in info or info.count("task_name:") != 1
                 or not finite or not np.isfinite(history[0]["train_loss"])):
             raise AssertionError(f"DP CLI artifacts: {info!r} {tested}")
-        if launched != {"fused_support_score": 0,
-                        "grouped_support_score": want}:
+        if launched["segment_sum"] <= 0 or scorer_launches(launched) != {
+                "fused_support_score": 0, "grouped_support_score": want}:
             raise AssertionError(f"DP CLI launches {launched}")
         self.dp_launches["dp_cli"] = launched
 
@@ -3386,7 +3448,7 @@ class Smoke:
         torch.cuda.synchronize()
         counts = launch_counts()
         self.mp_launches["mp_world1"] = counts
-        if counts != {"grouped_support_score": 4 * len(steps),
+        if scorer_launches(counts) != {"grouped_support_score": 4 * len(steps),
                       "fused_support_score": 0}:
             raise AssertionError(f"world-1 halo: launches {counts} for "
                                  f"{len(steps)} steps")
@@ -3433,7 +3495,7 @@ class Smoke:
         host_s = time.perf_counter() - t0
         counts = launch_counts()
         self.mp_launches["mp_host"] = counts
-        if counts != {"grouped_support_score": 4 * len(host_losses),
+        if scorer_launches(counts) != {"grouped_support_score": 4 * len(host_losses),
                       "fused_support_score": 0}:
             raise AssertionError(f"host-fed halo: launches {counts}")
         batches = list(loader)
@@ -3596,7 +3658,7 @@ class Smoke:
                               for v in ranks["launches"].values()):
             raise AssertionError(f"rank 0 launches {ranks['launches']}")
         total = {name: sum(v[name] for v in ranks["launches"].values())
-                 for name in REPLACES}
+                 for name in (*REPLACES, "segment_sum")}
         self.mp_launches["mp_four_ranks"] = total
         self.mp_record["four_ranks"] = {
             "spawn_s": spawn_s, "step_ms": ranks["step_ms"],
@@ -3666,8 +3728,8 @@ class Smoke:
                 or not os.path.exists(os.path.join(
                     logs, "graph_embedding.npy"))):
             raise AssertionError(f"halo CLI artifacts: {info!r} {tested}")
-        if launched != {"fused_support_score": 0,
-                        "grouped_support_score": want}:
+        if launched["segment_sum"] <= 0 or scorer_launches(launched) != {
+                "fused_support_score": 0, "grouped_support_score": want}:
             raise AssertionError(f"halo CLI launches {launched}")
         self.mp_launches["mp_cli"] = launched
         cards = self.torch.cuda.device_count()
@@ -3807,9 +3869,9 @@ class Smoke:
             raise AssertionError("enantiomer_separation: the card disagrees")
         if not card32.min() < 0.99999:
             raise AssertionError("no mirror pair separates (cosine < 0.99999)")
-        if counts != {"grouped_support_score": want,
+        if scorer_launches(counts) != {"grouped_support_score": want,
                       "fused_support_score": 0} or any(
-                          cos["fp64"][2].values()):
+                          scorer_launches(cos["fp64"][2]).values()):
             raise AssertionError(f"enantiomer_separation launches {counts}")
         return {"molecules": len(pairs), "fp64_max_diff": d64,
                 "fp32_max_diff": d32, "min_cos": float(card32.min()),
@@ -3877,7 +3939,7 @@ class Smoke:
             f"launches {counts}")
         if not np.isfinite([x for v in losses.values() for x in v]).all():
             raise AssertionError("SphereNet node vector: a loss is not finite")
-        if not moved > 0 or any(counts.values()):
+        if not moved > 0 or any(scorer_launches(counts).values()):
             raise AssertionError(f"SphereNet node vector: the vector moved "
                                  f"{moved}, launches {counts}")
         trainers = None
@@ -3966,7 +4028,7 @@ class Smoke:
                 f"{gap:.3e} (want > 1e-4); scorer launches {counts}")
             want_launches = {"grouped_support_score": 4 if use_kernel else 0,
                              "fused_support_score": 0}
-            if not close or gap <= 1e-4 or counts != want_launches:
+            if not close or gap <= 1e-4 or scorer_launches(counts) != want_launches:
                 raise AssertionError(f"bf16 {route} route fails")
             if use_kernel:
                 self.last_launches["bf16_eval"] = counts
@@ -3988,6 +4050,274 @@ class Smoke:
         return rec
 
     # ------------------------------------------------------------ record
+    # ------------------------------------------------------------ phase 14
+    def phase_repeat(self, graphs, spec):
+        """The fixed-order segment sum (ops/segment.py, csrc/segment_sum.cu)
+        and the repeatability it gives, with the checks of the module doc:
+        (a) the kernel bit-equal to its plain version at the flagship's
+        cover shapes, timed; (b) the flagship on phase 3's molecules (ties
+        included) forward, screening, eager and replayed steps; (c) the
+        point families and ChIRoNet; (d) no index_add_ kernel in a profiled
+        replayed step."""
+        t_phase = time.perf_counter()
+        self.repeat_record = {}
+        self.segment_kernel_times(graphs, spec)
+        self.repeat_flagship(graphs, spec)
+        self.repeat_families()
+        self.replay_kernel_names()
+        secs = time.perf_counter() - t_phase
+        self.repeat_record["seconds"] = secs
+        log(f"  phase 14 took {secs:.1f} s")
+
+    def segment_kernel_times(self, graphs, spec):
+        """(a): the main path's segment sums of one flagship batch of 1024
+        of phase 3's molecules, fp32 and fp64, against the plain version on
+        CPU copies (bit-equal, or the worst element is printed and the
+        phase fails); kernel, plan, index_add_ and plain times by CUDA
+        events, and the byte bound: each distinct row that the live terms
+        gather read once, each output written once, the indices read."""
+        import numpy as np
+
+        from molkgnn_torch.graphs.batch import batch_graphs
+        from molkgnn_torch.ops import segment as sg
+
+        torch = self.torch
+        card = torch.cuda.get_device_name(0)
+        b = batch_graphs(graphs[:BATCH], spec).to("cuda")
+        n, nb = b.x.shape[0], b.num_graphs
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        width = sum(FLAGSHIP_KERNELS)
+        d4 = b.buckets()[3]
+        cases = {
+            # name: (ids, segments, mask, gather, value rows, width)
+            "message passing": (b.edge_dst, n, b.edge_mask, b.edge_src, n,
+                                width),
+            "message passing, transposed (its gradient)": (
+                b.edge_src, n, b.edge_mask, b.edge_dst, n, width),
+            "pooling": (b.node_graph_id, nb, b.node_mask, None, n, 32),
+            "degree-4 neighbour gather's gradient": (
+                d4.nei_index, n, d4.mask[:, None].expand(d4.nei_index.shape),
+                None, d4.nei_index.numel(), width),
+        }
+        record = {}
+        for name, (ids, segs, mask, gather, rows, f) in cases.items():
+            plan = sg.segment_plan(ids, segs, mask, gather=gather)
+            live = int(plan.rowptr[segs])
+            for dtype in (torch.float32, torch.float64):
+                values = torch.randn(rows, f, generator=gen, device="cuda",
+                                     dtype=dtype)
+                got = sg.segment_sum(values, plan).cpu()
+                want = sg.segment_sum_plain(values.cpu(), plan.row.cpu(),
+                                            plan.rowptr.cpu())
+                if not torch.equal(got, want):
+                    diff = (got - want).abs()
+                    worst = np.unravel_index(int(diff.argmax()), diff.shape)
+                    raise AssertionError(
+                        f"segment sum {name} {dtype}: not bit-equal to the "
+                        f"plain version; worst element {tuple(worst)}: "
+                        f"kernel {got[worst].item()!r}, plain "
+                        f"{want[worst].item()!r}")
+                # index_add_ of the gathered, masked terms: the atomics the
+                # port no longer calls, timed as the yardstick.
+                src = (gather if gather is not None
+                       else torch.arange(rows, device="cuda"))
+                terms = values.index_select(0, src.reshape(-1).long())
+                if mask is not None:
+                    terms = torch.where(mask.reshape(-1, 1), terms, 0)
+                flat_ids = ids.reshape(-1).long()
+                item = values.element_size()
+                distinct = int(plan.row[:live].unique().numel())
+                nbytes = ((distinct * f + segs * f) * item
+                          + (live + segs + 1) * 4)
+                t = {
+                    "kernel_ms": time_ms(
+                        torch, lambda: sg.segment_sum(values, plan)),
+                    "plan_ms": time_ms(torch, lambda: sg.segment_plan(
+                        ids, segs, mask, gather=gather)),
+                    "plain_ms": time_ms(torch, lambda: sg.segment_sum_plain(
+                        values, plan.row, plan.rowptr)),
+                    "index_add_ms": time_ms(torch, lambda: values.new_zeros(
+                        (segs, f)).index_add_(0, flat_ids, terms)),
+                    "bound_ms": nbytes / HBM_RATE * 1e3,
+                    "bound_by": "bytes", "segments": segs, "terms": live,
+                    "rows_read": distinct, "width": f, "max_abs_err": 0.0,
+                }
+                key = f"{name}, {str(dtype)[6:]}"
+                record[key] = t
+                log(f"  (a) {key}: {segs} segments, {live} live terms of "
+                    f"{ids.numel()} reading {distinct} distinct rows, width "
+                    f"{f}: bit-equal to the plain "
+                    f"version; kernel {t['kernel_ms']:.4f} ms, plan "
+                    f"{t['plan_ms']:.4f} ms, index_add_ "
+                    f"{t['index_add_ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+                    f"ms, bound {t['bound_ms']:.4f} ms (bytes) on {card}")
+        self.repeat_record["kernel"] = record
+        self.segment_times = record["message passing, float32"]
+
+    def repeat_flagship(self, graphs, spec):
+        """(b): the flagship on phase 3's molecules, ties included: three
+        forwards bit-equal; screen_library against predict_graphs; two
+        eager epochs and two replayed epochs from one state, each pair
+        bit-equal, eager against replayed within 1e-5; launches counted."""
+        import numpy as np
+
+        from molkgnn_torch.graphs.batch import batch_graphs
+        from molkgnn_torch.ops import segment as sg
+        from molkgnn_torch.serving.predictor import Predictor
+        from molkgnn_torch.training.trainer import TrainConfig, Trainer
+
+        torch = self.torch
+        rec = {}
+        model = self.flagship(4, True).cuda().eval()
+        batch = batch_graphs(graphs[:BATCH], spec).to("cuda")
+        reset_launches()
+        with torch.inference_mode():
+            outs = [model(batch) for _ in range(3)]
+        launched = sg.segment_sum.launches
+        same = all(torch.equal(o[k], outs[0][k]) for o in outs
+                   for k in range(2))
+        log(f"  (b) three flagship forwards on {BATCH} of phase 3's "
+            f"molecules: bit-equal {same}; segment-sum launches {launched} "
+            f"(5 a forward: 4 layers' message passing and the pooling)")
+        if not same or launched != 15:
+            raise AssertionError("flagship forwards differ or the segment "
+                                 f"sum launched {launched} times, want 15")
+        rec["forwards_bit_equal"] = same
+
+        sd = {k: v.clone() for k, v in model.state_dict().items()}
+        pred = Predictor(model, sd, spec, device="cuda")
+        mols = graphs[:NUM_MOLECULES]
+        direct = np.asarray(pred.predict_graphs(mols))
+        screened = np.asarray(pred.screen_library(mols))
+        gap = float(np.abs(direct - screened).max())
+        log(f"  (b) screen_library against predict_graphs on "
+            f"{len(mols)} molecules: largest gap {gap!r} (0 expected: a "
+            f"molecule's sums no longer depend on its batch-mates or the "
+            f"run, and both paths fill the same batches)")
+        rec["screen_vs_predict_max_gap"] = gap
+
+        ds, tspec = self.train_data  # phase 5's: phase 3's molecules
+        runs = {}
+        for name, k in (("eager", 1), ("eager", 1), ("replayed", 8),
+                        ("replayed", 8)):
+            trainer = Trainer(self.flagship(4, True, seed=SEED + 2,
+                                            dropout=0.25),
+                              ds, tspec, TrainConfig(
+                                  batch_size=BATCH, scan_steps=k,
+                                  progress=False))
+            reset_launches()
+            losses = torch.stack(trainer._epoch_steps()).cpu()
+            if k > 1 and trainer._graph is None:
+                raise AssertionError("scan_steps=8 captured no graph")
+            state = {key: v.detach().clone()
+                     for key, v in trainer.model.state_dict().items()}
+            runs.setdefault(name, []).append(
+                (losses, state, sg.segment_sum.launches,
+                 launch_counts()["grouped_support_score"]))
+        for name, pair in runs.items():
+            (l0, s0, n0, g0), (l1, s1, n1, g1) = pair
+            equal = torch.equal(l0, l1) and all(
+                torch.equal(v, s1[key]) for key, v in s0.items())
+            log(f"  (b) two {name} epochs of {len(l0)} steps at batch "
+                f"{BATCH} (dropout 0.25) from one state: bit-equal {equal}; "
+                f"segment-sum launches {n0}, {n1}; scorer {g0}, {g1}")
+            if not equal or n0 != n1 or not n0:
+                raise AssertionError(f"two {name} epochs differ")
+            rec[f"{name}_bit_equal"] = equal
+            rec[f"{name}_segment_launches"] = n0
+        (le, se, *_), (lr, sr, *_) = runs["eager"][0], runs["replayed"][0]
+        rel = float(((lr - le).abs() / le.abs()).max())
+        diff = max(float((v - sr[key]).abs().max()) for key, v in se.items()
+                   if v.is_floating_point())
+        log(f"  (b) eager against replayed on phase 3's molecules: losses "
+            f"max relative difference {rel:.3e}, parameters {diff:.3e} "
+            f"(limit 1e-5; 3.595e-4 here when index_add_ summed)")
+        if rel > 1e-5 or diff > 1e-5:
+            raise AssertionError("eager and replayed epochs differ > 1e-5")
+        rec.update(eager_vs_replayed_rel_loss=rel,
+                   eager_vs_replayed_param=diff)
+        self.repeat_record["flagship"] = rec
+        self.repeat_launches = runs["replayed"][0][2]
+
+    def repeat_families(self):
+        """(c): each point family and ChIRoNet at its phase 8 or 9 batch,
+        one batch of its molecules: forward and backward twice, the
+        predictions and every gradient bit-equal."""
+        import gc
+
+        from molkgnn_torch.graphs.chiro import batch_chiro
+        from molkgnn_torch.graphs.geometric import batch_points
+        from molkgnn_torch.ops import segment as sg
+        from molkgnn_torch.training.model import bce_with_logits_loss
+
+        torch = self.torch
+        rec = {}
+        for name, (mols, spec) in self.family_batches.items():
+            pack = batch_chiro if name == "chironet" else batch_points
+            B = spec.num_graphs
+            batch = pack(mols[:B], spec).to("cuda")
+            model = self.family_model(name).cuda().eval()
+            runs = []
+            reset_launches()
+            for _ in range(2):
+                model.zero_grad(set_to_none=True)
+                out, _ = model(batch)
+                bce_with_logits_loss(out, batch.y, batch.graph_mask).backward()
+                runs.append([out.detach().clone()] + [
+                    p.grad.clone() for p in model.parameters()
+                    if p.grad is not None])
+            launched = sg.segment_sum.launches
+            equal = all(torch.equal(a, b) for a, b in zip(*runs))
+            log(f"  (c) {name}, batch {B}: forward and backward twice, "
+                f"prediction and {len(runs[0]) - 1} gradients bit-equal "
+                f"{equal}; segment-sum launches {launched}")
+            if not equal or not launched:
+                raise AssertionError(f"{name}: two forward and backward "
+                                     "passes differ")
+            rec[name] = {"batch": B, "bit_equal": equal,
+                         "segment_launches": launched}
+            batch = model = runs = None
+            gc.collect()
+            torch.cuda.empty_cache()
+        self.repeat_record["families"] = rec
+
+    def replay_kernel_names(self):
+        """(d): the kernels of two profiled replays of the flagship's
+        captured step (batch 1024, device sampling): none of index_add_'s,
+        index_put_'s sorting backward or scatter_add's, the float atomics
+        of the sums the segment-sum kernel replaces."""
+        from torch.profiler import ProfilerActivity, profile
+
+        from molkgnn_torch.training.trainer import TrainConfig, Trainer
+
+        torch = self.torch
+        ds, tspec = self.train_data
+        trainer = Trainer(self.flagship(4, True), ds, tspec, TrainConfig(
+            batch_size=BATCH, progress=False, scan_steps=16,
+            device_sampling=True))
+        for _ in range(4):
+            trainer._graph_step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                trainer._graph_step()
+            torch.cuda.synchronize()
+        rows = sorted(device_rows(prof), reverse=True)
+        if not rows:
+            raise AssertionError("the profiler recorded no kernel of the "
+                                 "replayed step")
+        log(f"  (d) kernels of 2 profiled replays of the flagship step "
+            f"({len(rows)} kernels, device ms, count, name):")
+        for ms, count, key in rows:
+            log(f"    {ms:9.3f} ms  x{count:<5d} {key[:110]}")
+        bad = [key for _, _, key in rows
+               if any(p in key for p in ATOMIC_SUMS)]
+        if bad:
+            raise AssertionError(f"atomic sums in the replayed step: {bad}")
+        self.repeat_record["replay_kernels"] = [
+            {"ms": ms, "count": count, "name": key} for ms, count, key in rows]
+
     def kernel_record(self):
         entries = []
         launches = {
@@ -4146,7 +4476,46 @@ class Smoke:
                         "bound_ms": bound_ms(shapes8[1::2])[0],
                     },
                 })
+        entries.append(self.segment_record(new_paths))
         return {"kernels": entries}
+
+    def segment_record(self, new_paths):
+        """The segment sum's entry of the kernel record: phase 14(a)'s
+        times of the message passing's sum (fp32), and its launches on the
+        main paths (serving, training, phase 14(b)'s replayed epoch), each
+        counted from 0, beside the count of the CLI and every path of
+        ``new_paths``."""
+        t = self.segment_times
+        paths = {"cli": self.cli_launches["segment_sum"]}
+        for path, (counts, _) in new_paths.items():
+            paths[path] = counts["segment_sum"]
+        zeros = [k for k, n in paths.items() if not n]
+        log(f"  segment-sum launches on every counted path: {paths}")
+        if zeros:
+            log(f"  paths that counted no segment-sum launch: {zeros}")
+        return {
+            "name": "segment_sum",
+            "route": "cuda",
+            "source": SEGMENT_SOURCE,
+            "replaces": SEGMENT_REPLACES,
+            "launches": self.main_segment_launches,
+            "max_abs_err": t["max_abs_err"],
+            "ms": t["kernel_ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["index_add_ms"],
+            "plan_ms": t["plan_ms"],
+            "path": "serving: Predictor.predict_graphs, 5 a request (4 "
+            "layers' message passing and the pooling)",
+            "train_launches": self.train_segment_launches,
+            "train_path": "training: Trainer.fit + test",
+            "replayed_epoch_launches": self.repeat_launches,
+            "shapes": {k: {f: v[f] for f in ("segments", "terms", "rows_read",
+                                          "width")}
+                       for k, v in self.repeat_record["kernel"].items()},
+            "path_launches": paths,
+        }
 
 
 def _dp_rank(path):
@@ -4305,7 +4674,11 @@ def _mp_rank(path):
 
 
 def main() -> int:
+    import faulthandler
+
     import torch
+
+    faulthandler.enable()  # a crash in native code prints the Python stack
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this needs an NVIDIA GPU",
@@ -4387,6 +4760,10 @@ def main() -> int:
             log("[13] native utilities, enantiomer_separation, SphereNet's "
                 "node vector, bf16 products")
             smoke.phase_last(graphs, tmp)
+            phase = "repeatability"
+            log("[14] the fixed-order segment sum: kernel against plain, "
+                "repeatable results on the card")
+            smoke.phase_repeat(graphs, spec)
         record = smoke.kernel_record()
     except Exception:
         traceback.print_exc()
@@ -4406,7 +4783,8 @@ def main() -> int:
                       "side": smoke.side_record,
                       "data_parallel": smoke.dp_record,
                       "model_parallel": smoke.mp_record,
-                      "last_modules": smoke.last_record}),
+                      "last_modules": smoke.last_record,
+                      "repeatability": smoke.repeat_record}),
           flush=True)
     print(json.dumps(record), flush=True)
     print(smi, flush=True)

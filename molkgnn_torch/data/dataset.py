@@ -129,11 +129,13 @@ def make_tie_free_dataset(
     """``n`` tie-free molecules (``tie_free_molgraph``) with random 0/1
     labels; the first ``n_train`` train, the rest split in two halves.
 
-    Runs compared with each other on the card use them: where neighbours
-    carry bitwise-equal features the permutation argmax follows the
-    summation order of ``index_add_``'s atomics, which changes from run to
-    run, and Adam's first steps turn such a flip into a parameter
-    difference of the learning rate's size.
+    Runs on the card compared with runs on the CPU use them: where
+    neighbours carry bitwise-equal features the permutation argmax follows
+    the last bits of the sums, cuBLAS sums its products in another order
+    than the CPU does, and Adam's first steps turn such a flip into a
+    parameter difference of the learning rate's size. Runs on the card
+    compared with each other need them no longer: every sum there runs in
+    a fixed order (``ops/segment.py``), so they repeat bit for bit.
     """
     rng = np.random.default_rng(seed)
     graphs = [tie_free_molgraph(rng) for _ in range(n)]

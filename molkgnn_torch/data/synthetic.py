@@ -18,11 +18,15 @@ from molkgnn_torch.graphs.molgraph import MolGraph
 def random_molgraph(
     rng: np.random.Generator,
     num_atoms: int | None = None,
+    node_dim: int = 28,
+    edge_dim: int = 7,
     label: float | None = None,
+    extra_edge_prob: float = 0.3,
 ) -> MolGraph:
-    """One random molecule; ``label`` None draws a 0/1 label from ``rng``."""
+    """One random molecule; ``label`` None draws a 0/1 label from ``rng``.
+    ``extra_edge_prob``: the chance of each of ``max(n // 6, 1)`` draws of a
+    ring-closing bond."""
     n = int(num_atoms if num_atoms is not None else rng.integers(8, 40))
-    node_dim, edge_dim = 28, 7
     deg = np.zeros(n, np.int64)
     bonds = []
 
@@ -38,7 +42,7 @@ def random_molgraph(
         in_tree.append(v)
 
     # A few ring-closing edges.
-    n_extra = int(rng.binomial(max(n // 6, 1), 0.3))
+    n_extra = int(rng.binomial(max(n // 6, 1), extra_edge_prob))
     existing = set(map(frozenset, bonds))
     for _ in range(n_extra):
         u, v = rng.integers(0, n, size=2)
@@ -80,12 +84,15 @@ def random_dataset(
     seed: int = 0,
     num_graphs: int = 64,
     active_fraction: float = 0.1,
+    **kwargs,
 ) -> List[MolGraph]:
+    """``num_graphs`` molecules of ``random_molgraph`` (``kwargs`` passed
+    on), each active with probability ``active_fraction``."""
     rng = np.random.default_rng(seed)
     graphs = []
     for i in range(num_graphs):
         label = 1.0 if rng.random() < active_fraction else 0.0
-        g = random_molgraph(rng, label=label)
+        g = random_molgraph(rng, label=label, **kwargs)
         g.idx = i
         graphs.append(g)
     return graphs

@@ -122,15 +122,27 @@ class BatchSpec:
     edge_dim: int = 7
     pos_dim: int = 3
 
+    def validate(self):
+        """Raise AssertionError, as the JAX package's ``validate``, if the
+        spec does not hold one capacity per degree."""
+        if len(self.deg_capacity) != MAX_DEGREE:
+            raise AssertionError(f"deg_capacity needs {MAX_DEGREE} entries, got "
+                             f"{len(self.deg_capacity)}")
 
-def spec_for_graphs(graphs: Sequence[MolGraph], batch_size: int) -> BatchSpec:
+
+def spec_for_graphs(
+    graphs: Sequence[MolGraph],
+    batch_size: int,
+    node_align: int = 8,
+    slack: float = 1.1,
+) -> BatchSpec:
     """Derive capacities that fit any ``batch_size`` molecules drawn from
-    ``graphs``: the sum of the ``batch_size`` largest counts with 10%
-    headroom, aligned up to 8."""
+    ``graphs``: the sum of the ``batch_size`` largest counts with ``slack``
+    headroom, aligned up to ``node_align``."""
 
     def cap(values: np.ndarray) -> int:
         top = np.sort(values)[::-1][:batch_size]
-        return _round_up(int(np.ceil(top.sum() * 1.1)), 8)
+        return _round_up(int(np.ceil(top.sum() * slack)), node_align)
 
     nodes = np.array([g.num_nodes for g in graphs])
     edges = np.array([g.num_edges for g in graphs])

@@ -151,7 +151,9 @@ class GATConv(nn.Module):
         shifted = e_logit - take_rows(seg_max, edge_dst)
         e_exp = torch.where(m, torch.exp(torch.where(m, shifted, 0.0)), 0.0)
         s_exp = torch.exp(s_logit - seg_max)
-        denom = segment_sum_nodes(e_exp, edge_dst, n) + s_exp
+        # e_exp is 0 on padded edges; the mask keeps them out of node 0's
+        # sum (the same value, and no long segment to walk).
+        denom = segment_sum_nodes(e_exp, edge_dst, n, mask=edge_mask) + s_exp
         alpha_e = e_exp / torch.clamp(take_rows(denom, edge_dst), min=1e-16)
         alpha_s = s_exp / torch.clamp(denom, min=1e-16)
         alpha_e, alpha_s = self.dropout(alpha_e), self.dropout(alpha_s)
@@ -206,7 +208,7 @@ class InternalCoordinateEncoder(nn.Module):
             shifted = torch.where(dmask, c - take_rows(mx, batch.ls_map),
                                   0.0)
             ex = torch.where(dmask, torch.exp(shifted), 0.0)
-            den = segment_sum_nodes(ex, batch.ls_map, num_alpha)
+            den = segment_sum_nodes(ex, batch.ls_map, num_alpha, mask=dmask)
             c_norm = (ex / torch.clamp(take_rows(den, batch.ls_map),
                                        min=1e-16))[:, None]
         else:
@@ -246,7 +248,8 @@ class InternalCoordinateEncoder(nn.Module):
             seg = take_rows(gid, idx)
             p = segment_sum_nodes(v, seg, B, mask=m)
             if self.reduction in ("mean", "average"):
-                cnt = segment_sum_nodes(m.to(v.dtype)[:, None], seg, B)
+                cnt = segment_sum_nodes(m.to(v.dtype)[:, None], seg, B,
+                                        mask=m)
                 p = p / torch.clamp(cnt, min=1.0)
             pooled_parts.append(p)
         return torch.cat(pooled_parts, dim=1), z_alpha

@@ -13,8 +13,16 @@ Port of ``molkgnn_tpu/models/kgnn.py`` with the same numerical contract:
   * The chirality sign (degree 4, last layer) compares signed tetrahedral
     volumes; the kernel-side volume is computed per (kernel, permutation)
     and gathered at the best permutation per (m, l).
-  * Per-degree score blocks are scatter-added into node order; padded
-    bucket rows point at node 0 and are masked to zero first.
+  * Per-degree score blocks are copied into node order; padded bucket
+    rows point at node 0, are masked to zero first and go to a dropped
+    row.
+  * Every sum of two or more terms (message passing, pooling, the
+    gradients of the gathers) goes through the fixed-order segment sum of
+    ``ops/segment.py`` (a CUDA kernel on the card, no atomics), so the
+    same molecules and weights give the same bits from run to run.
+    ``MolGCN.forward`` builds the batch's plans once per forward and
+    hands them to every layer; ``MolKGNNNet.forward`` builds the
+    pooling's.
 
 Scores are [nodes, kernels] throughout. Module names give ``state_dict()``
 the key layout of the reference PyTorch Lightning checkpoint
@@ -56,8 +64,13 @@ from molkgnn_torch.models.common import Dropout, TorchLinear, swish
 from molkgnn_torch.ops.norm import MaskedBatchNorm
 from molkgnn_torch.ops.permutations import perm_table
 from molkgnn_torch.ops.segment import (
+    SegmentPlan,
+    bucket_plans,
+    edge_plans,
     gather_scatter_add,
     global_add_pool,
+    planned,
+    segment_plan,
     take_rows,
 )
 from molkgnn_torch.ops.similarity import (
@@ -72,6 +85,23 @@ from molkgnn_torch.ops.support_score import (
 from molkgnn_torch.parallel.collectives import all_reduce_sum
 
 _PAIRS = [(i, j) for i in range(4) for j in range(i + 1, 4)]
+
+
+class _Pick(torch.autograd.Function):
+    """``torch.gather(t, 2, idx)``, whose gradient is a ``scatter_`` into
+    zeros: each (m, l) picks one permutation, so no two terms meet and the
+    gradient is exact without ``scatter_add_``'s float atomics."""
+
+    @staticmethod
+    def forward(ctx, t, idx):
+        ctx.save_for_backward(idx)
+        ctx.shape = t.shape
+        return torch.gather(t, 2, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        return grad.new_zeros(ctx.shape).scatter_(2, idx, grad), None
 
 
 class KernelConv(nn.Module):
@@ -90,7 +120,7 @@ class KernelConv(nn.Module):
     values: parameters with ``trainable_kernels``, else constant buffers
     that are not in ``state_dict()``. The score weights are parameters
     either way. Random kernels draw from ``generator``; given ones draw
-    nothing.
+    nothing. The five score weights start at ``init_sc_weight``.
     """
 
     def __init__(
@@ -105,6 +135,7 @@ class KernelConv(nn.Module):
         init_kernel: Optional[dict] = None,
         trainable_kernels: bool = True,
         matmul_dtype: Optional[torch.dtype] = None,
+        init_sc_weight: float = 0.2,
     ):
         super().__init__()
         self.deg = deg
@@ -139,12 +170,23 @@ class KernelConv(nn.Module):
             "support_attr_sc_weight",
             "edge_attr_support_sc_weight",
         ):
-            setattr(self, name, nn.Parameter(torch.tensor(0.2)))
-        self.register_buffer(
-            "perms",
-            torch.from_numpy(perm_table(deg)).long(),
-            persistent=False,
-        )
+            setattr(self, name, nn.Parameter(torch.tensor(init_sc_weight)))
+        perms = torch.from_numpy(perm_table(deg)).long()
+        self.register_buffer("perms", perms, persistent=False)
+        # The plan of the gathers at ``perms``, for their gradients: the
+        # table never changes, so its plan is built once, here.
+        plan = segment_plan(perms, deg)
+        self.register_buffer("perm_row", plan.row, persistent=False)
+        self.register_buffer("perm_rowptr", plan.rowptr, persistent=False)
+
+    def perm_support(self, t: torch.Tensor) -> torch.Tensor:
+        """A support tensor [L, d, C] gathered at every permutation:
+        [L, P, d, C]. On the card its gradient sums over the permutations
+        in a fixed order, through the plan of the static ``perms`` table."""
+        plan = SegmentPlan(self.perm_row, self.perm_rowptr,
+                           self.perms.reshape(-1))
+        return take_rows(t, self.perms, 1,
+                         plan=plan if planned(t) else None)
 
     def support_a(self, x_nei: torch.Tensor) -> torch.Tensor:
         """The support scorer's row-normalized A [M, d*F], contiguous; the
@@ -155,7 +197,7 @@ class KernelConv(nn.Module):
     def support_b(self) -> torch.Tensor:
         """The support scorer's row-normalized B [P, d*F, L], contiguous."""
         return (
-            normalize_rows(take_rows(self.x_support, self.perms, 1))
+            normalize_rows(self.perm_support(self.x_support))
             .reshape(self.num_kernels, len(self.perms),
                      self.deg * self.node_dim)
             .permute(1, 2, 0)
@@ -180,7 +222,6 @@ class KernelConv(nn.Module):
         support_result=None,  # optional (raw_best [M, L], idx [M, L])
     ) -> torch.Tensor:  # [M, L]
         d = self.deg
-        perms = self.perms
 
         # --- support-attribute score over all permutations ---
         if support_result is not None:
@@ -194,17 +235,17 @@ class KernelConv(nn.Module):
             best_idx = best_idx.long()
         else:
             support_sc = neighborhood_similarity(
-                x_nei, take_rows(self.x_support, perms, 1),
+                x_nei, self.perm_support(self.x_support),
                 matmul_dtype=self.matmul_dtype,
             )  # [M, L, P]
             best_sc, best_idx = support_sc.max(dim=2)  # first max wins
 
         # --- edge-attribute score at the best alignment ---
         edge_sc_all = neighborhood_similarity(
-            e_nei, take_rows(self.edge_attr_support, perms, 1),
+            e_nei, self.perm_support(self.edge_attr_support),
             matmul_dtype=self.matmul_dtype,
         )  # [M, L, P]
-        edge_sc = torch.gather(edge_sc_all, 2, best_idx[:, :, None])[:, :, 0]
+        edge_sc = _Pick.apply(edge_sc_all, best_idx[:, :, None])[:, :, 0]
 
         # --- center-attribute score ---
         center_sc = cosine_matrix(x_focal, self.x_center)  # [M, L]
@@ -246,17 +287,15 @@ class KernelConv(nn.Module):
         sign of det[t1, t2, t3] of the neighborhood against that of the
         best-aligned kernel supports; a mismatch flips the score.
 
-        The equality test is exact. At layers >= 2 the features are sums
-        taken with atomics on CUDA (ops/segment.py), so two neighbors whose
-        sums have several terms may compare unequal in one run and equal in
-        another; neighbors that are single-term sums (sibling leaves)
-        compare exactly, as in the JAX package.
+        The equality test is exact. At layers >= 2 the features are sums,
+        taken in a fixed order (ops/segment.py), so the test gives the same
+        answer from run to run on the card, as in the JAX package.
         """
         det_nei = (
             p_nei_c[:, 2]
             * torch.linalg.cross(p_nei_c[:, 0], p_nei_c[:, 1], dim=-1)
         ).sum(-1)  # [M]
-        s = take_rows(self.p_support, self.perms, 1)  # [L, P, 4, 3]
+        s = self.perm_support(self.p_support)  # [L, P, 4, 3]
         det_sup = (
             s[:, :, 2] * torch.linalg.cross(s[:, :, 0], s[:, :, 1], dim=-1)
         ).sum(-1)  # [L, P]
@@ -347,19 +386,23 @@ class KernelSetConv(nn.Module):
         p: torch.Tensor,  # [N, 3]
         buckets: Sequence[DegreeBucket],
         is_last_layer: bool = False,
+        plans: Optional[list] = None,
     ) -> torch.Tensor:
+        """``plans``: ``bucket_plans(buckets, N)`` for the gathers'
+        gradients, if the caller has them."""
         n = x.shape[0]
+        plans = plans or [(None, None)] * len(buckets)
         inputs = [
             dict(
-                x_focal=take_rows(x, b.focal_index),
+                x_focal=take_rows(x, b.focal_index, plan=focal),
                 p_focal=take_rows(p, b.focal_index),
-                x_nei=take_rows(x, b.nei_index),
+                x_nei=take_rows(x, b.nei_index, plan=nei),
                 p_nei=take_rows(p, b.nei_index),
                 e_nei=b.nei_edge_attr,
                 mask=b.mask,
                 is_last_layer=is_last_layer,
             )
-            for b in buckets
+            for b, (focal, nei) in zip(buckets, plans)
         ]
         convs = self.degree_convs()
 
@@ -382,9 +425,13 @@ class KernelSetConv(nn.Module):
             scs = [conv(**inp, support_result=r)  # [M_d, L], 0 on padding
                    for conv, r in zip(degree_convs, res)]
             sc = scs[0] if len(scs) == 1 else torch.cat(scs, dim=1)
-            # Padded rows target node 0 with zero contribution.
-            block = sc.new_zeros((n, sc.shape[1]))
-            blocks.append(block.index_add_(0, b.focal_index, sc))
+            # Node order: each node is the focal of at most one live row,
+            # so this is a copy, not a sum. Padded rows (zero scores) are
+            # sent to a dropped row n, where their equal zeros may land in
+            # any order; no float atomics, and the gradient is a gather.
+            block = sc.new_zeros((n + 1, sc.shape[1]))
+            rows = torch.where(b.mask, b.focal_index.long(), n)
+            blocks.append(block.index_copy_(0, rows, sc)[:n])
         out = torch.cat(blocks, dim=1)
         if self.psum_group is not None:
             out = all_reduce_sum(out, self.psum_group)
@@ -449,12 +496,20 @@ class MolGCN(nn.Module):
     def forward(self, batch: GraphBatch, x: torch.Tensor) -> torch.Tensor:
         h = x
         last = len(self.layers) - 1
+        buckets = batch.buckets()
+        # The batch's segment-sum plans (ops/segment.py), built once on its
+        # device for every layer: the message passing's and, for the
+        # gradients, its transpose and the buckets' gathers.
+        edges = edge_plans(batch.edge_src, batch.edge_dst, x.shape[0],
+                           batch.edge_mask, backward=torch.is_grad_enabled())
+        gathers = bucket_plans(buckets, x.shape[0])
         for i, layer in enumerate(self.layers):
             sc = layer(
                 h,
                 batch.p,
-                batch.buckets(),
+                buckets,
                 is_last_layer=self.chirality_every_layer or i == last,
+                plans=gathers,
             )
             h = gather_scatter_add(
                 sc,
@@ -462,6 +517,7 @@ class MolGCN(nn.Module):
                 batch.edge_dst,
                 num_nodes=sc.shape[0],
                 edge_mask=batch.edge_mask,
+                plans=edges,
             )
             if self.psum_group is not None:
                 h = all_reduce_sum(h, self.psum_group)
@@ -534,9 +590,12 @@ class MolKGNNNet(nn.Module):
         h = self.gnn(batch, x)
         h = swish(self.graph_embedding_lin1(h))
         h = self.graph_embedding_lin2(self.dropout(h))
+        pool = (segment_plan(batch.node_graph_id, batch.num_graphs,
+                             batch.node_mask) if planned(h) else None)
         return global_add_pool(
             h,
             batch.node_graph_id,
             num_graphs=batch.num_graphs,
             node_mask=batch.node_mask,
+            plan=pool,
         )

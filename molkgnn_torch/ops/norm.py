@@ -8,7 +8,8 @@ exactly to ``BatchNorm1d``:
     stats with the *unbiased* variance, momentum 0.1
     (new = (1-m)*old + m*batch).
   * eval:  normalize with the running stats.
-  * eps = 1e-5, learnable affine (weight init 1, bias init 0).
+  * eps = 1e-5 and momentum 0.1 by default (constructor arguments, as in
+    the JAX module), learnable affine (weight init 1, bias init 0).
 """
 
 from __future__ import annotations
@@ -18,11 +19,11 @@ from torch import nn
 
 
 class MaskedBatchNorm(nn.Module):
-    eps = 1e-5
-    momentum = 0.1
-
-    def __init__(self, num_features: int):
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.1):
         super().__init__()
+        self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))

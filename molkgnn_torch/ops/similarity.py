@@ -16,9 +16,9 @@ import torch
 _EPS = 1e-12
 
 
-def normalize_rows(t: torch.Tensor) -> torch.Tensor:
-    """L2-normalize along the last dim with zero-safe clamping."""
-    n = torch.linalg.vector_norm(t, dim=-1, keepdim=True)
+def normalize_rows(t: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """L2-normalize along ``axis`` with zero-safe clamping."""
+    n = torch.linalg.vector_norm(t, dim=axis, keepdim=True)
     return t / torch.clamp(n, min=_EPS)
 
 

@@ -29,7 +29,7 @@ caller that captures (the ``Trainer``'s train step, the block scorer of
 ``serving/blocks.py``) takes the capture's count back with
 ``take_launches`` (a capture runs nothing) and adds it at every replay with
 ``add_launches``, so that ``launches`` counts the kernel's launches on the
-card.
+card. The registry (``SCORERS``) holds the segment sum's wrapper too.
 
 Gradients: when autograd records (grad enabled and an input requires grad),
 both wrappers go through one ``torch.autograd.Function`` over G groups,
@@ -52,6 +52,8 @@ import functools
 from typing import List, Sequence, Tuple
 
 import torch
+
+from molkgnn_torch.ops.segment import segment_sum
 
 MAX_GROUPS = 16  # kMaxGroups in csrc/support_score.cu
 
@@ -349,8 +351,9 @@ def grouped_support_score(a_list, b_list):
 grouped_support_score.launches = 0
 
 
-# The scorer's wrappers, whose ``launches`` a captured graph's replays add to.
-SCORERS = (fused_support_score, grouped_support_score)
+# The counted kernel wrappers, whose ``launches`` a captured graph's replays
+# add to: the scorer's two and the segment sum's (``ops/segment.py``).
+SCORERS = (fused_support_score, grouped_support_score, segment_sum)
 
 
 def launch_counts() -> List[int]:

@@ -64,8 +64,12 @@ import torch.distributed as dist
 from molkgnn_torch.graphs.batch import DegreeBucket, GraphBatch
 from molkgnn_torch.models.common import swish
 from molkgnn_torch.ops.segment import (
+    bucket_plans,
+    edge_plans,
     gather_scatter_add,
     global_add_pool,
+    planned,
+    segment_plan,
     take_rows,
 )
 from molkgnn_torch.parallel.collectives import all_reduce_sum, exchange
@@ -453,8 +457,23 @@ def encoder_forward(encoder, hb: HaloBatch, groups: HaloGroups,
     ns = hb.node_mask.shape[0]
     world = groups.n_model
 
+    # The segment-sum plans (ops/segment.py) of the local and halo edge
+    # sets, of the shipped rows' gather and of the buckets' gathers, built
+    # once per forward. The halo plan's transpose sums into the received
+    # rows, [S * Hp].
+    grad = torch.is_grad_enabled()
+    local_plans = edge_plans(hb.edge_src_local, hb.edge_dst_local, ns,
+                             hb.edge_mask_local, backward=grad)
+    halo_plans = edge_plans(hb.edge_src_halo, hb.edge_dst_halo, ns,
+                            hb.edge_mask_halo, backward=grad,
+                            num_src=hb.send_ids.numel())
+    send_plan = (segment_plan(hb.send_ids, ns)
+                 if grad and planned(hb.send_ids) else None)
+    buckets = hb.buckets()
+    gathers = bucket_plans(buckets, hb.x_ext.shape[0])
+
     def send(v):  # [Ns, C] -> the rows to ship, [S, Hp, C]
-        return take_rows(v, hb.send_ids)
+        return take_rows(v, hb.send_ids, plan=send_plan)
 
     nbn = encoder.node_batch_norm
     if train:
@@ -472,18 +491,20 @@ def encoder_forward(encoder, hb: HaloBatch, groups: HaloGroups,
     layers = encoder.gnn.layers
     for i, layer in enumerate(layers):
         # [Next, C]; rows past Ns are zero (no focal row of this shard).
-        sc_own = layer(h_ext, hb.p_ext, hb.buckets(),
-                       is_last_layer=i == len(layers) - 1)[:ns]
+        sc_own = layer(h_ext, hb.p_ext, buckets,
+                       is_last_layer=i == len(layers) - 1,
+                       plans=gathers)[:ns]
         pending = []
         recv = exchange(send(sc_own), groups.model, pending)
         # The local edges do not read the exchange: it runs meanwhile.
         h_local = gather_scatter_add(
             sc_own, hb.edge_src_local, hb.edge_dst_local, num_nodes=ns,
-            edge_mask=hb.edge_mask_local)
+            edge_mask=hb.edge_mask_local, plans=local_plans)
         pending[0].wait()
         h_local = h_local + gather_scatter_add(
             recv.reshape(world * recv.shape[1], -1), hb.edge_src_halo,
-            hb.edge_dst_halo, num_nodes=ns, edge_mask=hb.edge_mask_halo)
+            hb.edge_dst_halo, num_nodes=ns, edge_mask=hb.edge_mask_halo,
+            plans=halo_plans)
         if i < len(layers) - 1:
             halo = exchange(send(h_local), groups.model)
             h_ext = torch.cat([h_local, halo.reshape(-1, h_local.shape[1])])

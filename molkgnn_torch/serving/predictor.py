@@ -16,7 +16,8 @@ ChIRoNet's internal-coordinate graphs (``ChiroBatchSpec``):
   * ``predict_smiles``: SMILES in (the port's chemistry), scores out, NaN
     where a SMILES does not parse (or, for ChIRoNet, has no dihedral);
   * ``export``/``load_exported``: the eval forward as a ``torch.export``
-    program (the scorer kernel a registered op in it) with the spec and
+    program (the scorer and segment-sum kernels registered ops in it)
+    with the spec and
     its family; loading needs no model code.
 
 A spec of another type raises. ``screen_library(mesh=)`` screens across
@@ -376,11 +377,12 @@ class Predictor:
     @staticmethod
     def load_exported(path: str, device: Optional[str | torch.device] = None):
         """Load an ``export`` artifact; returns ``(call(batch) -> (pred,
-        emb), spec)``. No model code is imported: only the scorer op's
-        registration (``ops/support_score.py``). ``device`` (default the
+        emb), spec)``. No model code is imported: only the registrations
+        of the scorer op (``ops/support_score.py``) and of the segment-sum
+        op it imports (``ops/segment.py``). ``device`` (default the
         card) must be the device type the program was exported on; the
         batch is copied there, and the outputs stay there."""
-        import molkgnn_torch.ops.support_score  # noqa: F401 (the op)
+        import molkgnn_torch.ops.support_score  # noqa: F401 (the ops)
 
         device = resolve_device(device)
         extra = {SPEC_FILE: ""}

@@ -1206,3 +1206,116 @@ def test_cuda_bf16_flagship_forward_matches_cpu(use_kernel):
     tol = 1e-5 if use_kernel else 1e-4
     torch.testing.assert_close(got.cpu(), want, rtol=tol, atol=tol)
     assert float((full - got).abs().max()) > 1e-4
+
+
+# The segment sum (ops/segment.py, csrc/segment_sum.cu): cases of (rows of
+# values, terms, segments, trailing shape, masked share).
+SEGMENT_CASES = {
+    "message_passing": (2000, 6000, 2000, (110,), 0.1),
+    "pooling": (3000, 3000, 64, (32,), 0.2),
+    "one_column": (500, 900, 700, (), 0.0),  # [N] sums, empty segments
+    "three_dims": (300, 800, 50, (4, 6), 0.5),
+    "no_terms": (10, 0, 5, (3,), 0.0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(SEGMENT_CASES))
+def test_cuda_segment_sum_bit_equal_to_plain(case, dtype):
+    """The kernel against its plain version on CPU copies of the same
+    inputs: the plan keeps each segment's terms in list order, and both add
+    them in that order from zero, so the sums are bit-equal (fp32 and
+    fp64), masked terms and empty segments included. One launch, counted."""
+    _needs_card()
+    from molkgnn_torch.ops import segment as sg
+
+    rows, terms, segs, tail, masked = SEGMENT_CASES[case]
+    rng = np.random.default_rng(sorted(SEGMENT_CASES).index(case))
+    values = torch.from_numpy(rng.standard_normal((rows,) + tail)).to(dtype)
+    ids = torch.from_numpy(rng.integers(0, segs, terms))
+    src = torch.from_numpy(rng.integers(0, rows, terms))
+    mask = torch.from_numpy(rng.random(terms) >= masked)
+    plan = sg.segment_plan(ids.cuda(), segs, mask.cuda(), gather=src.cuda())
+    want = sg.segment_sum_plain(values, plan.row.cpu(), plan.rowptr.cpu())
+    before = sg.segment_sum.launches
+    got = sg.segment_sum(values.cuda(), plan)
+    torch.cuda.synchronize()
+    assert sg.segment_sum.launches == before + (1 if got.numel() else 0)
+    assert got.dtype == dtype and got.shape == (segs,) + tail
+    assert torch.equal(got.cpu(), want)
+    # The plan built on the card equals the one built on the CPU.
+    cpu_plan = sg.segment_plan(ids, segs, mask, gather=src)
+    for a, b in zip(plan, cpu_plan):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_cuda_segment_sum_without_the_library_raises(monkeypatch):
+    """A CUDA tensor goes to the kernel or the call raises: with the
+    library unavailable nothing falls back to index_add_."""
+    _needs_card()
+    from molkgnn_torch.ops import _build
+    from molkgnn_torch.ops import segment as sg
+
+    def missing(stem):
+        raise OSError(f"lib{stem}.so: cannot open shared object file")
+
+    monkeypatch.setattr(_build, "library", missing)
+    ids = torch.tensor([0, 1, 1], device="cuda")
+    before = sg.segment_sum.launches
+    with pytest.raises(OSError):
+        sg.segment_sum_nodes(torch.ones(3, 2, device="cuda"), ids, 2)
+    assert sg.segment_sum.launches == before
+
+
+def _with_ties(n, seed=21):
+    """Synthetic molecules of chip_smoke.py's set (random spanning trees
+    with extra bonds): permutation-argmax ties included."""
+    from molkgnn_torch.data.synthetic import random_dataset
+
+    return random_dataset(seed=seed, num_graphs=n)
+
+
+@pytest.mark.cuda
+def test_cuda_flagship_forward_and_step_repeat_bit_equal():
+    """On molecules with ties, the flagship forward twice and one train
+    step twice from the same state give the same bits: every sum of two or
+    more terms runs in a fixed order (the segment-sum kernel), so no tie
+    flips between runs. The kernel launches on both."""
+    _needs_card()
+    import copy
+
+    from molkgnn_torch.graphs.batch import batch_graphs, spec_for_graphs
+    from molkgnn_torch.ops import segment as sg
+    from molkgnn_torch.training.model import bce_with_logits_loss
+
+    from molkgnn_torch.models.kgnn import MolKGNNNet
+    from molkgnn_torch.training.model import GNNModel
+
+    graphs = _with_ties(128)
+    batch = batch_graphs(graphs, spec_for_graphs(graphs, 128)).to("cuda")
+    gen = torch.Generator().manual_seed(22)
+    model = GNNModel(MolKGNNNet(use_kernel=True, generator=gen),
+                     ffn_dropout_rate=0.0, generator=gen).cuda()
+    with torch.no_grad():
+        model.eval()
+        before = sg.segment_sum.launches
+        runs = [model(batch)[0] for _ in range(2)]
+    assert sg.segment_sum.launches - before == 2 * 5  # 4 layers + pooling
+    assert torch.equal(runs[0], runs[1])
+
+    model.train()
+    start = copy.deepcopy(model.state_dict())
+    states = []
+    for _ in range(2):
+        model.load_state_dict(start)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+        logits = model(batch)[0]
+        loss = bce_with_logits_loss(logits, batch.y, batch.graph_mask)
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        states.append({k: v.clone() for k, v in model.state_dict().items()})
+    for k, v in states[0].items():
+        assert torch.equal(v, states[1][k]), k

@@ -326,6 +326,23 @@ def test_profiler_trace_writes_a_cpu_trace(tmp_path):
     assert not (tmp_path / "off").exists()
 
 
+def test_import_sets_the_profilers_cupti_teardown(monkeypatch):
+    """Importing the port makes every torch.profiler session detach CUPTI
+    at its end (TEARDOWN_CUPTI=1); an explicit setting wins. Left attached,
+    a CUDA graph captured between sessions crashed on the card when a later
+    session profiled its replays."""
+    import importlib
+
+    import molkgnn_torch
+
+    monkeypatch.delenv("TEARDOWN_CUPTI", raising=False)
+    importlib.reload(molkgnn_torch)
+    assert os.environ["TEARDOWN_CUPTI"] == "1"
+    monkeypatch.setenv("TEARDOWN_CUPTI", "0")
+    importlib.reload(molkgnn_torch)
+    assert os.environ["TEARDOWN_CUPTI"] == "0"
+
+
 # ---------------------------------------------------------------- prefetch
 def test_prefetch_keeps_order_and_raises_the_producers_error():
     items = [np.full(3, i) for i in range(7)]
