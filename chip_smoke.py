@@ -257,28 +257,35 @@ Phases, in order; any failure exits non-zero and prints no result line:
               graphs/s (scan_steps=16, device sampling) bf16 against fp32
               in turns.
  14. repeat:  the fixed-order segment sum (ops/segment.py,
-              csrc/segment_sum.cu) through which every sum of two or more
-              terms runs on the card. (a) At the flagship's cover shapes
-              (batch 1024 of phase 3's molecules: message passing and its
+              csrc/segment_sum.cu) and its plan builder
+              (csrc/segment_plan.cu), through which every sum of two or
+              more terms runs on the card. (a) Five cases of a batch of
+              1024 of phase 3's molecules (message passing and its
               transpose at width 110, pooling at 32, the degree-4
-              neighbour gather's gradient), fp32 and fp64, the kernel
-              bit-equal to its plain version on CPU copies (else the
-              worst element is printed); kernel, plan, index_add_ and
-              plain times by CUDA events, and the byte bound (each
-              distinct gathered row read once). (b) On phase
-              3's molecules, ties included: three flagship forwards
-              bit-equal (5 segment-sum launches each); screen_library
-              against predict_graphs, the largest gap printed; two eager
-              epochs and two replayed epochs (scan_steps=8, dropout 0.25)
-              from one state, each pair bit-equal, eager against replayed
-              within 1e-5. (c) SchNet, DimeNet++, SphereNet and ChIRoNet
-              at their phase 8 and 9 batches: forward and backward twice,
-              predictions and gradients bit-equal. (d) The kernels of two
-              profiled replays of the flagship step, printed: none of
-              index_add_'s, index_put_'s or scatter_add_'s.
-              The segment sum's launches are counted from 0 on every path
-              that reads the scorer's counts (launch_counts()); phases 4
-              and 5's main paths and 14's must launch it.
+              neighbour gather's gradient, one support tensor's perms
+              gather gradient at 50 x 110), fp32 and fp64
+              (molkgnn_torch/tools/segment_times.py): the sum bit-equal to
+              its plain version on CPU copies (else the worst element is
+              printed) and the plan kernel's plan equal to the plain plan;
+              device ms of sum and plan (torch.profiler) beside their event
+              ms, the byte bounds, index_add_, torch.sort and the plain
+              versions. (b) On phase 3's molecules, ties included: three
+              flagship forwards bit-equal (5 segment-sum launches and 2
+              plans each); screen_library against predict_graphs, the
+              largest gap printed; two eager epochs and two replayed epochs
+              (scan_steps=8, dropout 0.25) from one state, each pair
+              bit-equal, 73 sums and 11 plans a step, eager against
+              replayed within 1e-5. (c) SchNet, DimeNet++, SphereNet and
+              ChIRoNet at their phase 8 and 9 batches: forward and backward
+              twice, predictions and gradients bit-equal. (d) The kernels
+              of two profiled replays of the flagship step, printed: none
+              of index_add_'s, index_put_'s or scatter_add_'s, no sort,
+              only device sampling's searchsorted (6 a step).
+              The segment sum's launches and the plans are counted from 0
+              on every path that reads the scorer's counts
+              (launch_counts()); phases 4 and 5's main paths and 14's must
+              launch both (5 sums and 2 plans a forward, 73 and 11 a train
+              step).
 
 The last lines are the records of the phases' numbers, the kernel record
 ({"kernels": [...]}), the card's name and power limit, and
@@ -305,10 +312,16 @@ REPLACES = {
 }
 KERNEL_SOURCE = "molkgnn_torch/csrc/support_score.cu"
 SEGMENT_SOURCE = "molkgnn_torch/csrc/segment_sum.cu"
+PLAN_SOURCE = "molkgnn_torch/csrc/segment_plan.cu"
 # The segment sum replaces no TPU kernel: it sums in a fixed order what the
 # JAX package sums with XLA's segment_sum.
 SEGMENT_REPLACES = ("no TPU kernel: index_add_'s atomics; the JAX package's "
                     "XLA segment_sum, molkgnn_tpu/ops/segment.py:31")
+# The plan builder replaces no TPU kernel either: the JAX package needs no
+# plan.
+PLAN_REPLACES = ("no TPU kernel: the plain torch chain (stable torch.sort, "
+                 "searchsorted) of molkgnn_torch/ops/segment.py::"
+                 "segment_plan_plain")
 # Phase 14(d): substrings of the float-atomic sums' kernels (index_add_,
 # index_put_'s sorting backward, scatter_add_, embedding's backward) as the
 # profiler names them.
@@ -375,24 +388,26 @@ def log(*args):
 
 
 def reset_launches():
-    """Set every counted wrapper's launch count to 0: the scorer's and the
-    segment sum's."""
+    """Set every counted wrapper's launch count to 0: the scorer's, the
+    segment sum's and its plan builder's."""
     from molkgnn_torch.ops import segment as sg
     from molkgnn_torch.ops import support_score as ss
 
     for name in REPLACES:
         getattr(ss, name).launches = 0
     sg.segment_sum.launches = 0
+    sg.segment_plan.launches = 0
 
 
 def launch_counts():
     """Each counted wrapper's launch count, by wrapper name: the scorer's
-    two and "segment_sum"."""
+    two, "segment_sum" and "segment_plan" (plans built, one a plan)."""
     from molkgnn_torch.ops import segment as sg
     from molkgnn_torch.ops import support_score as ss
 
     counts = {name: getattr(ss, name).launches for name in REPLACES}
     counts["segment_sum"] = sg.segment_sum.launches
+    counts["segment_plan"] = sg.segment_plan.launches
     return counts
 
 
@@ -426,26 +441,14 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps: int = 20):
-    """Device time of the scorer kernel per call of ``fn``, from
+def device_ms(torch, fn, reps: int = 20, name=KERNEL_NAME):
+    """Device time per call of ``fn`` of the kernels whose name holds
+    ``name`` (the scorer's by default; every kernel for None), from
     torch.profiler over ``reps`` calls; None where the profiler records no
     device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from molkgnn_torch.tools.segment_times import profiled_ms
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(
-        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    ) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(
-        evt.self_device_time_total for evt in prof.key_averages()
-        if evt.device_type == DeviceType.CUDA and KERNEL_NAME in evt.key
-    )
-    return total_us / 1e3 / reps if total_us > 0 else None
+    return profiled_ms(fn, reps, name)
 
 
 def graph_ms(torch, fn, n: int = 50) -> float:
@@ -779,8 +782,10 @@ class Smoke:
             "fused_support_score": ss.fused_support_score.launches,
         }
         self.main_segment_launches = sg.segment_sum.launches
+        self.main_plan_launches = sg.segment_plan.launches
         log(f"  main path: {chunks} chunks, launches {launches}, segment "
-            f"sum {self.main_segment_launches} (want 5 a chunk)")
+            f"sum {self.main_segment_launches} (want 5 a chunk), plans "
+            f"{self.main_plan_launches} (want 2 a chunk)")
         if launches["grouped_support_score"] != 4 * chunks:
             raise AssertionError(
                 f"grouped scorer launched {launches['grouped_support_score']}"
@@ -789,6 +794,9 @@ class Smoke:
         if self.main_segment_launches != 5 * chunks:
             raise AssertionError("the segment sum did not launch 5 times a "
                                  "chunk (4 layers and the pooling)")
+        if self.main_plan_launches != 2 * chunks:
+            raise AssertionError("the plan kernel did not build 2 plans a "
+                                 "chunk (the edges' and the pooling's)")
         if scores.shape != (len(graphs),) or not np.isfinite(scores).all():
             raise AssertionError("scores are not finite or misshapen")
         self.main_launches = launches
@@ -1067,6 +1075,7 @@ class Smoke:
             "fused_support_score": ss.fused_support_score.launches,
         }
         self.train_segment_launches = sg.segment_sum.launches
+        self.train_plan_launches = sg.segment_plan.launches
         if not self.train_segment_launches:
             raise AssertionError("the segment sum did not launch in training")
         eval_batches = (
@@ -1074,10 +1083,18 @@ class Smoke:
             + len(tested) * -(-len(ds.split["test"]) // BATCH)
         )
         want = 4 * trainer.step + 4 * eval_batches
+        want_sums = 73 * trainer.step + 5 * eval_batches
+        want_plans = 11 * trainer.step + 2 * eval_batches
         log(f"  main path: fit + test in {secs:.2f} s, {trainer.step} "
             f"optimizer steps, {eval_batches} evaluation batches, "
             f"launches {launches} (want {want} grouped), segment sum "
-            f"{self.train_segment_launches}")
+            f"{self.train_segment_launches} (want {want_sums}: 73 a step, 5 "
+            f"an evaluation batch), plans {self.train_plan_launches} (want "
+            f"{want_plans}: 11 a step, 2 an evaluation batch)")
+        if (self.train_segment_launches != want_sums
+                or self.train_plan_launches != want_plans):
+            raise AssertionError("segment sums or plans a step or batch "
+                                 "are not 73 and 11, 5 and 2")
         if launches["grouped_support_score"] != want:
             raise AssertionError("grouped launches are not 4 per step and "
                                  "per evaluation batch")
@@ -3658,7 +3675,7 @@ class Smoke:
                               for v in ranks["launches"].values()):
             raise AssertionError(f"rank 0 launches {ranks['launches']}")
         total = {name: sum(v[name] for v in ranks["launches"].values())
-                 for name in (*REPLACES, "segment_sum")}
+                 for name in (*REPLACES, "segment_sum", "segment_plan")}
         self.mp_launches["mp_four_ranks"] = total
         self.mp_record["four_ranks"] = {
             "spawn_s": spawn_s, "step_ms": ranks["step_ms"],
@@ -4070,87 +4087,18 @@ class Smoke:
         log(f"  phase 14 took {secs:.1f} s")
 
     def segment_kernel_times(self, graphs, spec):
-        """(a): the main path's segment sums of one flagship batch of 1024
-        of phase 3's molecules, fp32 and fp64, against the plain version on
-        CPU copies (bit-equal, or the worst element is printed and the
-        phase fails); kernel, plan, index_add_ and plain times by CUDA
-        events, and the byte bound: each distinct row that the live terms
-        gather read once, each output written once, the indices read."""
-        import numpy as np
-
+        """(a): the main path's segment sums and their plans on one
+        flagship batch of 1024 of phase 3's molecules, five cases, fp32 and
+        fp64 (``molkgnn_torch/tools/segment_times.py``): the sum bit-equal
+        to its plain version on CPU copies and the plan kernel's plan equal
+        to the plain plan (else the phase fails); device ms of both
+        (torch.profiler) beside their event ms, the byte bounds,
+        index_add_, torch.sort and the plain versions."""
         from molkgnn_torch.graphs.batch import batch_graphs
-        from molkgnn_torch.ops import segment as sg
+        from molkgnn_torch.tools.segment_times import measure
 
-        torch = self.torch
-        card = torch.cuda.get_device_name(0)
         b = batch_graphs(graphs[:BATCH], spec).to("cuda")
-        n, nb = b.x.shape[0], b.num_graphs
-        gen = torch.Generator(device="cuda").manual_seed(SEED)
-        width = sum(FLAGSHIP_KERNELS)
-        d4 = b.buckets()[3]
-        cases = {
-            # name: (ids, segments, mask, gather, value rows, width)
-            "message passing": (b.edge_dst, n, b.edge_mask, b.edge_src, n,
-                                width),
-            "message passing, transposed (its gradient)": (
-                b.edge_src, n, b.edge_mask, b.edge_dst, n, width),
-            "pooling": (b.node_graph_id, nb, b.node_mask, None, n, 32),
-            "degree-4 neighbour gather's gradient": (
-                d4.nei_index, n, d4.mask[:, None].expand(d4.nei_index.shape),
-                None, d4.nei_index.numel(), width),
-        }
-        record = {}
-        for name, (ids, segs, mask, gather, rows, f) in cases.items():
-            plan = sg.segment_plan(ids, segs, mask, gather=gather)
-            live = int(plan.rowptr[segs])
-            for dtype in (torch.float32, torch.float64):
-                values = torch.randn(rows, f, generator=gen, device="cuda",
-                                     dtype=dtype)
-                got = sg.segment_sum(values, plan).cpu()
-                want = sg.segment_sum_plain(values.cpu(), plan.row.cpu(),
-                                            plan.rowptr.cpu())
-                if not torch.equal(got, want):
-                    diff = (got - want).abs()
-                    worst = np.unravel_index(int(diff.argmax()), diff.shape)
-                    raise AssertionError(
-                        f"segment sum {name} {dtype}: not bit-equal to the "
-                        f"plain version; worst element {tuple(worst)}: "
-                        f"kernel {got[worst].item()!r}, plain "
-                        f"{want[worst].item()!r}")
-                # index_add_ of the gathered, masked terms: the atomics the
-                # port no longer calls, timed as the yardstick.
-                src = (gather if gather is not None
-                       else torch.arange(rows, device="cuda"))
-                terms = values.index_select(0, src.reshape(-1).long())
-                if mask is not None:
-                    terms = torch.where(mask.reshape(-1, 1), terms, 0)
-                flat_ids = ids.reshape(-1).long()
-                item = values.element_size()
-                distinct = int(plan.row[:live].unique().numel())
-                nbytes = ((distinct * f + segs * f) * item
-                          + (live + segs + 1) * 4)
-                t = {
-                    "kernel_ms": time_ms(
-                        torch, lambda: sg.segment_sum(values, plan)),
-                    "plan_ms": time_ms(torch, lambda: sg.segment_plan(
-                        ids, segs, mask, gather=gather)),
-                    "plain_ms": time_ms(torch, lambda: sg.segment_sum_plain(
-                        values, plan.row, plan.rowptr)),
-                    "index_add_ms": time_ms(torch, lambda: values.new_zeros(
-                        (segs, f)).index_add_(0, flat_ids, terms)),
-                    "bound_ms": nbytes / HBM_RATE * 1e3,
-                    "bound_by": "bytes", "segments": segs, "terms": live,
-                    "rows_read": distinct, "width": f, "max_abs_err": 0.0,
-                }
-                key = f"{name}, {str(dtype)[6:]}"
-                record[key] = t
-                log(f"  (a) {key}: {segs} segments, {live} live terms of "
-                    f"{ids.numel()} reading {distinct} distinct rows, width "
-                    f"{f}: bit-equal to the plain "
-                    f"version; kernel {t['kernel_ms']:.4f} ms, plan "
-                    f"{t['plan_ms']:.4f} ms, index_add_ "
-                    f"{t['index_add_ms']:.4f} ms, plain {t['plain_ms']:.4f} "
-                    f"ms, bound {t['bound_ms']:.4f} ms (bytes) on {card}")
+        record = measure(b, SEED, log)
         self.repeat_record["kernel"] = record
         self.segment_times = record["message passing, float32"]
 
@@ -4174,14 +4122,17 @@ class Smoke:
         with torch.inference_mode():
             outs = [model(batch) for _ in range(3)]
         launched = sg.segment_sum.launches
+        plans = sg.segment_plan.launches
         same = all(torch.equal(o[k], outs[0][k]) for o in outs
                    for k in range(2))
         log(f"  (b) three flagship forwards on {BATCH} of phase 3's "
             f"molecules: bit-equal {same}; segment-sum launches {launched} "
-            f"(5 a forward: 4 layers' message passing and the pooling)")
-        if not same or launched != 15:
+            f"(5 a forward: 4 layers' message passing and the pooling), "
+            f"plans {plans} (2 a forward: the edges' and the pooling's)")
+        if not same or launched != 15 or plans != 6:
             raise AssertionError("flagship forwards differ or the segment "
-                                 f"sum launched {launched} times, want 15")
+                                 f"sum launched {launched} times, want 15, "
+                                 f"or {plans} plans were built, want 6")
         rec["forwards_bit_equal"] = same
 
         sd = {k: v.clone() for k, v in model.state_dict().items()}
@@ -4211,20 +4162,28 @@ class Smoke:
                 raise AssertionError("scan_steps=8 captured no graph")
             state = {key: v.detach().clone()
                      for key, v in trainer.model.state_dict().items()}
+            counts = launch_counts()
             runs.setdefault(name, []).append(
-                (losses, state, sg.segment_sum.launches,
-                 launch_counts()["grouped_support_score"]))
+                (losses, state, counts["segment_sum"],
+                 counts["grouped_support_score"], counts["segment_plan"]))
         for name, pair in runs.items():
-            (l0, s0, n0, g0), (l1, s1, n1, g1) = pair
+            (l0, s0, n0, g0, p0), (l1, s1, n1, g1, p1) = pair
             equal = torch.equal(l0, l1) and all(
                 torch.equal(v, s1[key]) for key, v in s0.items())
-            log(f"  (b) two {name} epochs of {len(l0)} steps at batch "
+            steps = len(l0)
+            log(f"  (b) two {name} epochs of {steps} steps at batch "
                 f"{BATCH} (dropout 0.25) from one state: bit-equal {equal}; "
-                f"segment-sum launches {n0}, {n1}; scorer {g0}, {g1}")
-            if not equal or n0 != n1 or not n0:
+                f"segment-sum launches {n0}, {n1} (73 a step); plans {p0}, "
+                f"{p1} (11 a step); scorer {g0}, {g1}")
+            if not equal:
                 raise AssertionError(f"two {name} epochs differ")
+            if {n0, n1} != {73 * steps} or {p0, p1} != {11 * steps}:
+                raise AssertionError(f"{name} epochs: segment sums {n0}, "
+                                     f"{n1} or plans {p0}, {p1} are not 73 "
+                                     "and 11 a step")
             rec[f"{name}_bit_equal"] = equal
             rec[f"{name}_segment_launches"] = n0
+            rec[f"{name}_plan_launches"] = p0
         (le, se, *_), (lr, sr, *_) = runs["eager"][0], runs["replayed"][0]
         rel = float(((lr - le).abs() / le.abs()).max())
         diff = max(float((v - sr[key]).abs().max()) for key, v in se.items()
@@ -4238,6 +4197,7 @@ class Smoke:
                    eager_vs_replayed_param=diff)
         self.repeat_record["flagship"] = rec
         self.repeat_launches = runs["replayed"][0][2]
+        self.repeat_plans = runs["replayed"][0][4]
 
     def repeat_families(self):
         """(c): each point family and ChIRoNet at its phase 8 or 9 batch,
@@ -4267,15 +4227,17 @@ class Smoke:
                     p.grad.clone() for p in model.parameters()
                     if p.grad is not None])
             launched = sg.segment_sum.launches
+            plans = sg.segment_plan.launches
             equal = all(torch.equal(a, b) for a, b in zip(*runs))
             log(f"  (c) {name}, batch {B}: forward and backward twice, "
                 f"prediction and {len(runs[0]) - 1} gradients bit-equal "
-                f"{equal}; segment-sum launches {launched}")
-            if not equal or not launched:
+                f"{equal}; segment-sum launches {launched}, plans {plans}")
+            if not equal or not launched or not plans:
                 raise AssertionError(f"{name}: two forward and backward "
                                      "passes differ")
             rec[name] = {"batch": B, "bit_equal": equal,
-                         "segment_launches": launched}
+                         "segment_launches": launched,
+                         "plan_launches": plans}
             batch = model = runs = None
             gc.collect()
             torch.cuda.empty_cache()
@@ -4315,8 +4277,26 @@ class Smoke:
                if any(p in key for p in ATOMIC_SUMS)]
         if bad:
             raise AssertionError(f"atomic sums in the replayed step: {bad}")
+        # The plans' library sorts (the parent's 11 stable radix sorts a
+        # step, 110 kernels) and their 11 searchsorted: the plan kernel
+        # replaces both; device sampling's 6 searchsorted a step stay (one a
+        # gathered field: graphs/device_pack.py::_ranged_gather).
+        sorts = sum(count for _, count, key in rows
+                    if "sort" in key.lower() and "searchsorted" not in key)
+        searches = sum(count for _, count, key in rows
+                       if "searchsorted" in key)
+        plan_ms = sum(ms for ms, _, key in rows if "plan_" in key)
+        log(f"  (d) sort kernels {sorts}, searchsorted kernels {searches} "
+            f"(device sampling's, 6 a step), plan kernels "
+            f"{plan_ms / 2:.4f} ms a step")
+        if sorts or searches > 2 * 6:
+            raise AssertionError("the plans' library sorts or searchsorted "
+                                 "are in the replayed step")
         self.repeat_record["replay_kernels"] = [
             {"ms": ms, "count": count, "name": key} for ms, count, key in rows]
+        self.repeat_record["replay_sorts"] = sorts
+        self.repeat_record["replay_searchsorted"] = searches
+        self.repeat_record["replay_plan_ms_a_step"] = plan_ms / 2
 
     def kernel_record(self):
         entries = []
@@ -4477,7 +4457,26 @@ class Smoke:
                     },
                 })
         entries.append(self.segment_record(new_paths))
+        entries.append(self.plan_record(new_paths))
         return {"kernels": entries}
+
+    def path_counts(self, new_paths, name):
+        """``name``'s launches on the CLI's path and every path of
+        ``new_paths``, each counted from 0; paths that counted none are
+        printed."""
+        paths = {"cli": self.cli_launches[name]}
+        for path, (counts, _) in new_paths.items():
+            paths[path] = counts[name]
+        zeros = [k for k, n in paths.items() if not n]
+        log(f"  {name} launches on every counted path: {paths}")
+        if zeros:
+            log(f"  paths that counted no {name} launch: {zeros}")
+        return paths
+
+    def shapes(self):
+        return {k: {f: v[f] for f in ("segments", "terms", "ids",
+                                      "rows_read", "width")}
+                for k, v in self.repeat_record["kernel"].items()}
 
     def segment_record(self, new_paths):
         """The segment sum's entry of the kernel record: phase 14(a)'s
@@ -4486,13 +4485,6 @@ class Smoke:
         counted from 0, beside the count of the CLI and every path of
         ``new_paths``."""
         t = self.segment_times
-        paths = {"cli": self.cli_launches["segment_sum"]}
-        for path, (counts, _) in new_paths.items():
-            paths[path] = counts["segment_sum"]
-        zeros = [k for k, n in paths.items() if not n]
-        log(f"  segment-sum launches on every counted path: {paths}")
-        if zeros:
-            log(f"  paths that counted no segment-sum launch: {zeros}")
         return {
             "name": "segment_sum",
             "route": "cuda",
@@ -4505,16 +4497,47 @@ class Smoke:
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": t["index_add_ms"],
+            "device_ms": t["kernel_device_ms"],
             "plan_ms": t["plan_ms"],
             "path": "serving: Predictor.predict_graphs, 5 a request (4 "
             "layers' message passing and the pooling)",
             "train_launches": self.train_segment_launches,
-            "train_path": "training: Trainer.fit + test",
+            "train_path": "training: Trainer.fit + test, 73 a step, 5 an "
+            "evaluation batch",
             "replayed_epoch_launches": self.repeat_launches,
-            "shapes": {k: {f: v[f] for f in ("segments", "terms", "rows_read",
-                                          "width")}
-                       for k, v in self.repeat_record["kernel"].items()},
-            "path_launches": paths,
+            "shapes": self.shapes(),
+            "path_launches": self.path_counts(new_paths, "segment_sum"),
+        }
+
+    def plan_record(self, new_paths):
+        """The plan builder's entry of the kernel record: phase 14(a)'s
+        times of the message passing's plan (its event and device ms, the
+        plain chain's, the byte bound; no single library call builds a
+        plan, so library_ms is null and torch.sort of its keys stands
+        beside it), and its plans on every path, counted as the sum's."""
+        t = self.segment_times
+        return {
+            "name": "segment_plan",
+            "route": "cuda",
+            "source": PLAN_SOURCE,
+            "replaces": PLAN_REPLACES,
+            "launches": self.main_plan_launches,
+            "max_abs_err": 0,
+            "ms": t["plan_ms"],
+            "plain_ms": t["plan_plain_ms"],
+            "bound_ms": t["plan_bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "device_ms": t["plan_device_ms"],
+            "sort_ms": t["sort_ms"],
+            "path": "serving: Predictor.predict_graphs, 2 a request (the "
+            "edges' plan and the pooling's), one count a plan",
+            "train_launches": self.train_plan_launches,
+            "train_path": "training: Trainer.fit + test, 11 a step, 2 an "
+            "evaluation batch",
+            "replayed_epoch_launches": self.repeat_plans,
+            "shapes": self.shapes(),
+            "path_launches": self.path_counts(new_paths, "segment_plan"),
         }
 
 

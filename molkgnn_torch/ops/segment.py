@@ -16,9 +16,20 @@ the card too. Its implementations:
     the two are bit-equal;
   * fake (meta): the output's shape, for ``torch.export``.
 
-``segment_plan`` builds a plan on the tensors' device with a stable sort
-and ``searchsorted``, with no host synchronisation, so that a plan can be
-built inside a CUDA graph capture. Callers that sum over one index many
+``segment_plan`` builds a plan on the tensors' device, through one more
+op, ``torch.ops.molkgnn.segment_plan(ids, num_segments, mask, gather)``:
+
+  * CUDA: the hand-written kernel ``csrc/segment_plan.cu``, a stable LSD
+    counting sort of the int32 keys over their live bits (``plan_passes``)
+    that writes ``row`` (gathered) and ``rowptr`` itself, counted in
+    ``segment_plan.launches`` (one a plan, whatever its passes);
+  * CPU: the plain version, ``segment_plan_plain`` (a stable
+    ``torch.sort`` and ``searchsorted``); the kernel's plan equals it as
+    integers;
+  * fake (meta): the shapes, for ``torch.export``.
+
+Neither synchronises with the host, so a plan can be built inside a CUDA
+graph capture. Callers that sum over one index many
 times (the kgnn layers, the halo forward) build their plans once per
 forward and pass them in; the others build them per call here. Plans are
 for the kernel: for tensors that ``planned`` turns down (CPU tensors) the
@@ -45,11 +56,19 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 _DTYPES = {torch.float32: 0, torch.float64: 1}
+_INDEX = {torch.int32: 0, torch.int64: 1}
+PLAN_TILE = 1024  # kTile in csrc/segment_plan.cu: keys a tile of a pass
+PLAN_CHUNK = 2048  # kChunk there: rowptr's counts a scan block
+_INT32 = 2**31
+# Warps of the segment-sum kernel that fill the card (132 SMs x 16): with
+# fewer, a lane loads narrower vectors and takes one vector column, so that
+# there are more warps to hide a gather's latency.
+_FILL_WARPS = 132 * 16
 
 
 class SegmentPlan(NamedTuple):
@@ -79,15 +98,44 @@ def segment_plan(
 ) -> SegmentPlan:
     """The plan of ``out[s] = sum of values[gather[i]] over i with
     ids[i] == s and mask[i]`` (``gather`` None reads row i). ``ids`` of
-    any shape, flattened; entries in [0, num_segments)."""
-    ids = ids.reshape(-1).long()
-    if mask is not None:
-        ids = torch.where(mask.reshape(-1), ids, num_segments)
+    any shape, flattened; entries in [0, num_segments). On CUDA tensors
+    one build of the plan kernel (counted in ``segment_plan.launches``),
+    else the plain version; both through ``torch.ops.molkgnn.
+    segment_plan``."""
+    flat = (lambda t: None if t is None else t.reshape(-1))  # noqa: E731
+    return SegmentPlan(*segment_plan_op(ids.reshape(-1), num_segments,
+                                        flat(mask), flat(gather)))
+
+
+segment_plan.launches = 0
+
+
+def segment_plan_plain(ids, num_segments, mask=None, gather=None):
+    """Plain version of the plan: a stable sort of the (masked) ids and
+    ``searchsorted`` for the bounds, in torch."""
+    flat = ids.reshape(-1)
+    ids = (flat.to(torch.int64, copy=True) if mask is None
+           else torch.where(mask.reshape(-1), flat.long(), num_segments))
     sorted_ids, order = torch.sort(ids, stable=True)
     bounds = torch.arange(num_segments + 2, device=ids.device)
     rowptr = torch.searchsorted(sorted_ids, bounds)
     row = order if gather is None else gather.reshape(-1).long()[order]
     return SegmentPlan(row.int(), rowptr.int(), ids)
+
+
+def plan_passes(num_segments: int) -> int:
+    """The 8-bit digit passes of the plan kernel's sort over ``num_segments``
+    segments: its keys lie in [0, S] (S the dump segment), so they need
+    ``S.bit_length()`` bits; at least one pass."""
+    return max(1, -(-num_segments.bit_length() // 8))
+
+
+def plan_scratch(num_terms: int, num_segments: int) -> int:
+    """The plan kernel's scratch in int32s (``molkgnn_segment_plan_
+    scratch``): two key and two payload buffers, the [256, tiles] digit
+    counts, the 256 digit totals and the totals of rowptr's chunks."""
+    return (4 * num_terms + 256 * -(-num_terms // PLAN_TILE) + 256
+            - (-(num_segments + 2) // PLAN_CHUNK))
 
 
 def planned(t: torch.Tensor) -> bool:
@@ -139,20 +187,81 @@ def segment_sum_plain(values, row, rowptr):
     return out[:s]
 
 
+class SumLaunch(NamedTuple):
+    """How the segment-sum kernel covers a row of f columns: ``vec``
+    columns a vector load, ``group`` lanes a (segment, column tile),
+    ``cpl`` vectors a lane, ``tiles`` column tiles a segment; ``wide``:
+    64-bit index arithmetic."""
+
+    vec: int
+    group: int
+    cpl: int
+    tiles: int
+    wide: bool
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def sum_launch(item: int, f: int, num_segments: int, rows: int,
+               align: int) -> SumLaunch:
+    """The kernel's launch shape for values of ``rows`` rows of ``f``
+    elements of ``item`` bytes summed into ``num_segments`` segments, both
+    pointers ``align``-byte aligned (csrc/segment_sum.cu's note): the
+    widest vector of at most 16 bytes that divides the row and the
+    alignment, narrower while the groups' warps are too few to fill the
+    card; lanes enough for the row's vectors, up to 32; 2 or 4 vectors a
+    lane only where the segments alone fill the card; 32-bit indices where
+    ``rows * f``, ``num_segments * f`` and the thread count fit an
+    int32."""
+    vecs = [v for v in (16 // item, 8 // item, 1)
+            if v >= 1 and f % v == 0 and align % (v * item) == 0]
+    for vec in vecs:
+        fv = f // vec
+        group = min(32, _pow2_at_least(fv))
+        warps = num_segments * -(-fv // group) * group // 32
+        if warps >= _FILL_WARPS:
+            break
+    cpl = next((c for c in (4, 2) if fv > 32 * (c - 1) and
+                num_segments * -(-fv // (32 * c)) >= _FILL_WARPS), 1)
+    tiles = -(-fv // (group * cpl))
+    wide = (max(rows, num_segments) * f >= _INT32
+            or num_segments * tiles * group + 256 >= _INT32)
+    if wide:
+        group, cpl, tiles = 32, 1, -(-fv // 32)
+    return SumLaunch(vec, group, cpl, tiles, wide)
+
+
+def _alignment(*ptrs: int) -> int:
+    """The largest of 16, 8, 4, 2, 1 that divides every pointer."""
+    return next(a for a in (16, 8, 4, 2, 1) if all(p % a == 0 for p in ptrs))
+
+
 def _kernel_lib() -> ctypes.CDLL:
     """The built segment-sum library, with its C signatures declared."""
     from molkgnn_torch.ops._build import library
 
     lib = library("segment_sum")
     if lib.molkgnn_segment_sum.argtypes is None:
-        lib.molkgnn_segment_sum.argtypes = [
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        lib.molkgnn_segment_sum.argtypes = [ctypes.c_int] * 6 + [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
         ]
         lib.molkgnn_segment_sum.restype = ctypes.c_int
         lib.molkgnn_segment_sum_error_string.argtypes = [ctypes.c_int]
         lib.molkgnn_segment_sum_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _same_device(what, tensors):
+    """The one device of ``tensors`` (None entries skipped), and whether it
+    is the current CUDA device."""
+    devices = {t.device for t in tensors if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"{what} inputs on several devices: {devices}")
+    (device,) = devices
+    return device, device.index == torch.cuda.current_device()
 
 
 def _launch(values, row, rowptr, out) -> None:
@@ -163,22 +272,107 @@ def _launch(values, row, rowptr, out) -> None:
                         f"{values.dtype}")
     if row.dtype != torch.int32 or rowptr.dtype != torch.int32:
         raise TypeError("segment sum kernel takes int32 row and rowptr")
-    devices = {t.device for t in (values, row, rowptr, out)}
-    if len(devices) != 1:
-        raise ValueError(f"segment sum inputs on several devices: {devices}")
-    f = out[0].numel() if out.shape[0] else 0
-    device = out.device
+    device, same = _same_device("segment sum", (values, row, rowptr, out))
+    f = out[0].numel()
+    shape = sum_launch(values.element_size(), f, out.shape[0],
+                       values.shape[0],
+                       _alignment(values.data_ptr(), out.data_ptr()))
     lib = _kernel_lib()
-    same = device.index == torch.cuda.current_device()
     with contextlib.nullcontext() if same else torch.cuda.device(device):
         err = lib.molkgnn_segment_sum(
-            _DTYPES[values.dtype], values.data_ptr(), row.data_ptr(),
+            _DTYPES[values.dtype], shape.vec, shape.group, shape.cpl,
+            shape.tiles, int(shape.wide), values.data_ptr(), row.data_ptr(),
             rowptr.data_ptr(), out.data_ptr(), out.shape[0], f,
             torch._C._cuda_getCurrentRawStream(device.index))
     if err != 0:
         msg = lib.molkgnn_segment_sum_error_string(err).decode()
         raise RuntimeError(f"segment sum kernel launch failed: {msg} "
                            f"({err})")
+
+
+def _plan_lib() -> ctypes.CDLL:
+    """The built plan library, with its C signatures declared."""
+    from molkgnn_torch.ops._build import library
+
+    lib = library("segment_plan")
+    if lib.molkgnn_segment_plan.argtypes is None:
+        p = ctypes.c_void_p
+        lib.molkgnn_segment_plan.argtypes = [
+            p, ctypes.c_int, p, p, ctypes.c_int, ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_int, p, p, p, p, ctypes.c_int64, p,
+        ]
+        lib.molkgnn_segment_plan.restype = ctypes.c_int
+        lib.molkgnn_segment_plan_error_string.argtypes = [ctypes.c_int]
+        lib.molkgnn_segment_plan_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _plan_launch(ids, num_segments, mask, gather, row, rowptr, flat):
+    """One build of the plan by the plan kernel's passes; raises on refused
+    arguments or a failed launch."""
+    e = ids.shape[0]
+    if ids.dtype not in _INDEX or ids.dim() != 1:
+        raise TypeError(f"segment plan kernel takes 1-D int32 or int64 ids, "
+                        f"got {ids.dtype} {tuple(ids.shape)}")
+    if mask is not None and (mask.dtype != torch.bool
+                             or mask.shape != (e,)):
+        raise TypeError(f"segment plan kernel takes a bool mask of {e}, got "
+                        f"{mask.dtype} {tuple(mask.shape)}")
+    if gather is not None and (gather.dtype not in _INDEX
+                               or gather.shape != (e,)):
+        raise TypeError(f"segment plan kernel takes an int32 or int64 gather"
+                        f" of {e}, got {gather.dtype} "
+                        f"{tuple(gather.shape)}")
+    device, same = _same_device("segment plan", (ids, mask, gather))
+    ids = ids.contiguous()
+    mask = None if mask is None else mask.contiguous()
+    gather = None if gather is None else gather.contiguous()
+    scratch = torch.empty(plan_scratch(e, num_segments), dtype=torch.int32,
+                          device=device)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    lib = _plan_lib()
+    with contextlib.nullcontext() if same else torch.cuda.device(device):
+        err = lib.molkgnn_segment_plan(
+            ids.data_ptr(), _INDEX[ids.dtype], ptr(mask), ptr(gather),
+            0 if gather is None else _INDEX[gather.dtype], e, num_segments,
+            plan_passes(num_segments), row.data_ptr(), rowptr.data_ptr(),
+            flat.data_ptr(), scratch.data_ptr(), scratch.numel(),
+            torch._C._cuda_getCurrentRawStream(device.index))
+    if err != 0:
+        msg = lib.molkgnn_segment_plan_error_string(err).decode()
+        raise RuntimeError(f"segment plan kernel launch failed: {msg} "
+                           f"({err})")
+
+
+@torch.library.custom_op(
+    "molkgnn::segment_plan", mutates_args=(), device_types="cpu"
+)
+def segment_plan_op(
+    ids: torch.Tensor, num_segments: int, mask: Optional[torch.Tensor],
+    gather: Optional[torch.Tensor],
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(row, rowptr, ids) of ``SegmentPlan`` for 1-D ``ids`` (and mask and
+    gather of its length). This body is the CPU version, the plain one."""
+    return tuple(segment_plan_plain(ids, num_segments, mask, gather))
+
+
+@segment_plan_op.register_kernel("cuda")
+def _segment_plan_cuda(ids, num_segments, mask, gather):
+    e = ids.shape[0]
+    row = ids.new_empty(e, dtype=torch.int32)
+    rowptr = ids.new_empty(num_segments + 2, dtype=torch.int32)
+    flat = ids.new_empty(e, dtype=torch.int64)
+    _plan_launch(ids, num_segments, mask, gather, row, rowptr, flat)
+    segment_plan.launches += 1
+    return row, rowptr, flat
+
+
+@segment_plan_op.register_fake
+def _segment_plan_fake(ids, num_segments, mask, gather):
+    e = ids.shape[0]
+    return (ids.new_empty(e, dtype=torch.int32),
+            ids.new_empty(num_segments + 2, dtype=torch.int32),
+            ids.new_empty(e, dtype=torch.int64))
 
 
 @torch.library.custom_op(

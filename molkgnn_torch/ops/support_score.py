@@ -29,7 +29,8 @@ caller that captures (the ``Trainer``'s train step, the block scorer of
 ``serving/blocks.py``) takes the capture's count back with
 ``take_launches`` (a capture runs nothing) and adds it at every replay with
 ``add_launches``, so that ``launches`` counts the kernel's launches on the
-card. The registry (``SCORERS``) holds the segment sum's wrapper too.
+card. The registry (``SCORERS``) holds the segment sum's wrapper and its
+plan builder too.
 
 Gradients: when autograd records (grad enabled and an input requires grad),
 both wrappers go through one ``torch.autograd.Function`` over G groups,
@@ -53,7 +54,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from molkgnn_torch.ops.segment import segment_sum
+from molkgnn_torch.ops.segment import segment_plan, segment_sum
 
 MAX_GROUPS = 16  # kMaxGroups in csrc/support_score.cu
 
@@ -352,8 +353,10 @@ grouped_support_score.launches = 0
 
 
 # The counted kernel wrappers, whose ``launches`` a captured graph's replays
-# add to: the scorer's two and the segment sum's (``ops/segment.py``).
-SCORERS = (fused_support_score, grouped_support_score, segment_sum)
+# add to: the scorer's two, the segment sum's and its plan builder's
+# (``ops/segment.py``).
+SCORERS = (fused_support_score, grouped_support_score, segment_sum,
+           segment_plan)
 
 
 def launch_counts() -> List[int]:

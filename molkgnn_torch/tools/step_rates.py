@@ -9,7 +9,9 @@ In one process, from seed 0, fp32, TF32 off:
     (``Predictor.predict_graphs``) and forward only (the model on the
     prepared batches), and ``Predictor.screen_library`` graphs/s over the
     molecules repeated 4 times (32,768), each after one warm-up, host clock,
-    synchronised, best of 3;
+    synchronised, best of 3; then 2 replays profiled (torch.profiler: the
+    step's device ms, its top kernels, and its sort, searchsorted,
+    segment-sum and plan kernels);
   * SchNet, DimeNet++ and SphereNet at their published widths on the same
     molecules (8192, 2048 and 512 of them, batches 1024, 128 and 128) and
     ChIRoNet on the 29 scaffold SMILES of ``chip_smoke.py`` under 8 seeds
@@ -88,6 +90,43 @@ def replayed_ms(trainer, warm, blocks, n):
     return out
 
 
+def replay_kernels(trainer, n=2):
+    """The kernels of ``n`` profiled replays of ``trainer``'s captured
+    step (torch.profiler): each kernel's device ms a step and launches a
+    step, and the sort, searchsorted, segment-sum and plan kernels among
+    them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            trainer._graph_step()
+        torch.cuda.synchronize()
+    rows = [(evt.self_device_time_total / 1e3 / n, evt.count / n, evt.key)
+            for evt in prof.key_averages()
+            if evt.device_type == DeviceType.CUDA
+            and evt.self_device_time_total > 0
+            and not getattr(evt, "is_user_annotation", False)]
+
+    def share(test):
+        picked = [(ms, c) for ms, c, key in rows if test(key)]
+        return {"ms": sum(ms for ms, _ in picked),
+                "launches": sum(c for _, c in picked)}
+
+    return {
+        "device_ms": sum(ms for ms, _, _ in rows),
+        "sorts": share(lambda k: "sort" in k.lower()
+                       and "searchsorted" not in k),
+        "searchsorted": share(lambda k: "searchsorted" in k),
+        "segment_sum": share(lambda k: "segment_sum" in k),
+        "plan_kernels": share(lambda k: "plan_" in k),
+        "top": [{"ms": ms, "launches": c, "name": key[:100]}
+                for ms, c, key in sorted(rows, reverse=True)[:12]],
+    }
+
+
 def best_rate(fn, graphs, runs=3):
     """graphs/s of the best of ``runs`` synchronised calls after one."""
     fn()
@@ -114,6 +153,7 @@ def kgnn_rates():
         batch_size=BATCH, progress=False, scan_steps=16,
         device_sampling=True))
     step = replayed_ms(trainer, 20, 6, 16)
+    kernels = replay_kernels(trainer)
     trainer = None
     gc.collect()
     model = flagship()
@@ -132,6 +172,7 @@ def kgnn_rates():
     library = graphs * 4
     return {
         "replayed_step_ms": step,
+        "replayed_step_kernels": kernels,
         "train_graphs_per_s": [BATCH * 1e3 / ms for ms in step],
         "serve_e2e_graphs_per_s": best_rate(
             lambda: pred.predict_graphs(graphs), len(graphs)),

@@ -1209,13 +1209,22 @@ def test_cuda_bf16_flagship_forward_matches_cpu(use_kernel):
 
 
 # The segment sum (ops/segment.py, csrc/segment_sum.cu): cases of (rows of
-# values, terms, segments, trailing shape, masked share).
+# values, terms, segments, trailing shape, masked share, elements the values
+# start past a 16-byte boundary).
 SEGMENT_CASES = {
-    "message_passing": (2000, 6000, 2000, (110,), 0.1),
-    "pooling": (3000, 3000, 64, (32,), 0.2),
-    "one_column": (500, 900, 700, (), 0.0),  # [N] sums, empty segments
-    "three_dims": (300, 800, 50, (4, 6), 0.5),
-    "no_terms": (10, 0, 5, (3,), 0.0),
+    "message_passing": (2000, 6000, 2000, (110,), 0.1, 0),
+    "pooling": (3000, 3000, 64, (32,), 0.2, 0),
+    "one_column": (500, 900, 700, (), 0.0, 0),  # [N] sums, empty segments
+    "three_dims": (300, 800, 50, (4, 6), 0.5, 0),
+    "no_terms": (10, 0, 5, (3,), 0.0, 0),
+    "width_1": (500, 900, 700, (1,), 0.1, 0),
+    "width_3": (400, 1200, 300, (3,), 0.1, 0),
+    "width_128": (2000, 5000, 1500, (128,), 0.1, 0),
+    "perms_width_5500": (48, 48, 4, (5500,), 0.0, 0),
+    "unaligned_32": (3000, 3000, 64, (32,), 0.2, 1),
+    "unaligned_110": (2000, 6000, 2000, (110,), 0.1, 1),
+    "long_segments": (5000, 200_000, 100, (32,), 0.05, 0),
+    "all_masked": (300, 800, 50, (110,), 1.0, 0),
 }
 
 
@@ -1226,20 +1235,29 @@ def test_cuda_segment_sum_bit_equal_to_plain(case, dtype):
     """The kernel against its plain version on CPU copies of the same
     inputs: the plan keeps each segment's terms in list order, and both add
     them in that order from zero, so the sums are bit-equal (fp32 and
-    fp64), masked terms and empty segments included. One launch, counted."""
+    fp64), masked terms and empty segments included, at widths 1 to 5500,
+    from values that start off a 16-byte boundary (narrower vector loads),
+    over segments of 2,000 terms. One launch, counted; the plan built by
+    the plan kernel equals the plain plan."""
     _needs_card()
     from molkgnn_torch.ops import segment as sg
 
-    rows, terms, segs, tail, masked = SEGMENT_CASES[case]
+    rows, terms, segs, tail, masked, offset = SEGMENT_CASES[case]
     rng = np.random.default_rng(sorted(SEGMENT_CASES).index(case))
     values = torch.from_numpy(rng.standard_normal((rows,) + tail)).to(dtype)
     ids = torch.from_numpy(rng.integers(0, segs, terms))
     src = torch.from_numpy(rng.integers(0, rows, terms))
     mask = torch.from_numpy(rng.random(terms) >= masked)
+    plans = sg.segment_plan.launches
     plan = sg.segment_plan(ids.cuda(), segs, mask.cuda(), gather=src.cuda())
+    assert sg.segment_plan.launches == plans + 1
     want = sg.segment_sum_plain(values, plan.row.cpu(), plan.rowptr.cpu())
+    card = torch.empty(values.numel() + offset, dtype=dtype, device="cuda")
+    card = card[offset:].view(values.shape)
+    card.copy_(values)
+    assert (card.data_ptr() % 16 == 0) == (offset == 0)
     before = sg.segment_sum.launches
-    got = sg.segment_sum(values.cuda(), plan)
+    got = sg.segment_sum(card, plan)
     torch.cuda.synchronize()
     assert sg.segment_sum.launches == before + (1 if got.numel() else 0)
     assert got.dtype == dtype and got.shape == (segs,) + tail
@@ -1251,22 +1269,115 @@ def test_cuda_segment_sum_bit_equal_to_plain(case, dtype):
 
 
 @pytest.mark.cuda
-def test_cuda_segment_sum_without_the_library_raises(monkeypatch):
-    """A CUDA tensor goes to the kernel or the call raises: with the
-    library unavailable nothing falls back to index_add_."""
+@pytest.mark.parametrize("masked,gathered", [(False, False), (True, False),
+                                             (False, True), (True, True)])
+@pytest.mark.parametrize("index", [torch.int32, torch.int64])
+@pytest.mark.parametrize("segments", [255, 256, 65_535, 65_536])
+def test_cuda_segment_plan_equals_plain(segments, index, masked, gathered):
+    """The plan kernel's row, rowptr and ids against the plain plan's, as
+    integers, at the digit boundaries of its passes (S = 255 and 65,535 are
+    the last of 1 and 2 passes), int32 and int64 ids and gathers, with and
+    without a mask, over five tiles of keys that reach the dump segment S.
+    One plan counted."""
+    _needs_card()
+    from molkgnn_torch.ops import segment as sg
+
+    rng = np.random.default_rng(segments + 7 * masked + 3 * gathered)
+    terms = 4 * sg.PLAN_TILE + 321
+    ids = torch.from_numpy(rng.integers(0, segments, terms)).to(index)
+    ids[:5] = segments - 1
+    mask = (torch.from_numpy(rng.random(terms) >= 0.3) if masked else None)
+    gather = (torch.from_numpy(rng.integers(0, 10**6, terms)).to(index)
+              if gathered else None)
+    want = sg.segment_plan_plain(ids, segments, mask, gather)
+    cuda = lambda t: None if t is None else t.cuda()  # noqa: E731
+    before = sg.segment_plan.launches
+    got = sg.segment_plan(ids.cuda(), segments, cuda(mask), cuda(gather))
+    torch.cuda.synchronize()
+    assert sg.segment_plan.launches == before + 1
+    for field, g, w in zip(sg.SegmentPlan._fields, got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, field
+        assert torch.equal(g.cpu(), w), field
+
+
+@pytest.mark.cuda
+def test_cuda_segment_plan_in_graph_capture_equals_eager():
+    """A plan built inside a CUDA graph capture, replayed, equals the eager
+    plan of the same inputs; refilled inputs and a second replay give the
+    eager plan of the new ones: the kernels take their shapes from E and S
+    and synchronise nothing with the host."""
+    _needs_card()
+    from molkgnn_torch.ops import segment as sg
+
+    rng = np.random.default_rng(31)
+    terms, segs = 3 * sg.PLAN_TILE + 5, 40_000
+
+    def inputs():
+        return (torch.from_numpy(rng.integers(0, segs, terms)).cuda(),
+                torch.from_numpy(rng.random(terms) >= 0.2).cuda(),
+                torch.from_numpy(rng.integers(0, 5000, terms)).cuda())
+
+    static = inputs()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sg.segment_plan(static[0], segs, static[1], static[2])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = sg.segment_plan(static[0], segs, static[1], static[2])
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = sg.segment_plan(static[0], segs, static[1], static[2])
+        for g, w in zip(captured, eager):
+            assert torch.equal(g, w)
+        for t, new in zip(static, inputs()):
+            t.copy_(new)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stem", ["segment_sum", "segment_plan"])
+def test_cuda_segment_sum_without_the_library_raises(monkeypatch, stem):
+    """A CUDA tensor goes to the kernels or the call raises: with the sum's
+    or the plan builder's library unavailable nothing falls back to
+    index_add_ or to the torch sort, and nothing is counted."""
     _needs_card()
     from molkgnn_torch.ops import _build
     from molkgnn_torch.ops import segment as sg
 
-    def missing(stem):
-        raise OSError(f"lib{stem}.so: cannot open shared object file")
+    built = _build.library
+
+    def missing(name):
+        if name == stem:
+            raise OSError(f"lib{name}.so: cannot open shared object file")
+        return built(name)
 
     monkeypatch.setattr(_build, "library", missing)
     ids = torch.tensor([0, 1, 1], device="cuda")
-    before = sg.segment_sum.launches
+    before = (sg.segment_sum.launches, sg.segment_plan.launches)
     with pytest.raises(OSError):
         sg.segment_sum_nodes(torch.ones(3, 2, device="cuda"), ids, 2)
-    assert sg.segment_sum.launches == before
+    assert sg.segment_sum.launches == before[0]
+    assert sg.segment_plan.launches == before[1] + (stem == "segment_sum")
+
+
+@pytest.mark.cuda
+def test_cuda_segment_plan_refuses_what_it_does_not_take():
+    """Ids that are not integers, a mask that is not bool or a gather of
+    another length raise before any launch, uncounted."""
+    _needs_card()
+    from molkgnn_torch.ops import segment as sg
+
+    ids = torch.tensor([0, 1, 1], device="cuda")
+    before = sg.segment_plan.launches
+    with pytest.raises(TypeError):
+        sg.segment_plan(ids.float(), 2)
+    with pytest.raises(TypeError):
+        sg.segment_plan(ids, 2, mask=torch.ones(3, device="cuda"))
+    with pytest.raises(TypeError):
+        sg.segment_plan(ids, 2, gather=torch.arange(4, device="cuda"))
+    assert sg.segment_plan.launches == before
 
 
 def _with_ties(n, seed=21):

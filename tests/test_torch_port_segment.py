@@ -261,3 +261,101 @@ def test_flagship_on_plans_bit_equal_to_plain(monkeypatch, dtype,
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert g.dtype == dtype and torch.equal(g, w)
+
+
+def _lsd_order(keys, passes, tile):
+    """The plan kernel's sort written out in numpy: ``passes`` 8-bit LSD
+    passes, each counting the digits of every tile of ``tile`` keys,
+    scanning the counts in [digit][tile] order and placing each key at its
+    digit's offset in its tile plus the keys of that digit before it in
+    the tile, in list order."""
+    order = np.arange(len(keys))
+    keys = keys.copy()
+    tiles = -(-len(keys) // tile)
+    for p in range(passes):
+        digit = (keys >> (8 * p)) & 255
+        counts = np.zeros((256, tiles), np.int64)
+        for t in range(tiles):
+            counts[:, t] = np.bincount(digit[t * tile:(t + 1) * tile],
+                                       minlength=256)
+        running = (np.cumsum(counts.ravel()) - counts.ravel()).reshape(
+            counts.shape)
+        pos = np.empty(len(keys), np.int64)
+        for i, d in enumerate(digit):
+            pos[i] = running[d, i // tile]
+            running[d, i // tile] += 1
+        new_keys, new_order = np.empty_like(keys), np.empty_like(order)
+        new_keys[pos], new_order[pos] = keys, order
+        keys, order = new_keys, new_order
+    return order
+
+
+@pytest.mark.parametrize("segments,passes", [
+    (0, 1), (1, 1), (255, 1), (256, 2), (65_535, 2), (65_536, 3),
+    (2**24 - 1, 3), (2**24, 4)])
+def test_plan_pass_schedule_gives_the_stable_sort(segments, passes):
+    """The plan kernel's digit passes: keys lie in [0, S] (S the dump
+    segment), so S.bit_length() bits, 8 a pass. The kernel's passes,
+    emulated over tiles of ``PLAN_TILE`` keys, give ``torch.sort(stable=
+    True)``'s order on keys that reach S, and so the plain plan's row and
+    rowptr; one pass fewer does not (where there are fewer than 4)."""
+    assert t_seg.plan_passes(segments) == passes
+    if segments > 65_536:
+        return  # the schedule alone: the emulation stays small
+    rng = np.random.default_rng(segments)
+    terms = 2 * t_seg.PLAN_TILE + 77  # three tiles, the last ragged
+    ids = rng.integers(0, max(segments, 1), terms)
+    mask = rng.random(terms) >= 0.25
+    gather = rng.integers(0, 500, terms)
+    keys = np.where(mask, ids, segments)
+    want = torch.sort(torch.from_numpy(keys), stable=True).indices.numpy()
+    order = _lsd_order(keys, passes, t_seg.PLAN_TILE)
+    assert np.array_equal(order, want)
+    if passes > 1:
+        assert not np.array_equal(
+            _lsd_order(keys, passes - 1, t_seg.PLAN_TILE), want)
+    plan = t_seg.segment_plan_plain(torch.from_numpy(ids), segments,
+                                    torch.from_numpy(mask),
+                                    torch.from_numpy(gather))
+    assert np.array_equal(plan.row.numpy(), gather[order])
+    bounds = np.searchsorted(keys[order], np.arange(segments + 2))
+    assert np.array_equal(plan.rowptr.numpy(), bounds)
+    assert np.array_equal(plan.ids.numpy(), keys)
+    assert t_seg.plan_scratch(terms, segments) == (
+        4 * terms + 256 * 3 + 256 + -(-(segments + 2) // t_seg.PLAN_CHUNK))
+
+
+@pytest.mark.parametrize("item,f,segments,rows,align,want", [
+    # message passing and its gradients at width 110: float2 / double2, two
+    # a lane
+    (4, 110, 42_312, 42_312, 256, (2, 32, 2, 1, False)),
+    (8, 110, 42_312, 42_312, 256, (2, 32, 2, 1, False)),
+    # pooling at 32: 1024 segments of float4 lanes would be 256 warps, too
+    # few for the card, so scalar lanes, a warp a segment
+    (4, 32, 1024, 42_312, 256, (1, 32, 1, 1, False)),
+    # at 32 with many segments: four segments a warp of float4 lanes, and
+    # narrower vectors from a values view 8 or 4 bytes off 16
+    (4, 32, 42_312, 42_312, 256, (4, 8, 1, 1, False)),
+    (4, 32, 42_312, 42_312, 8, (2, 16, 1, 1, False)),
+    (4, 32, 42_312, 42_312, 4, (1, 32, 1, 1, False)),
+    (8, 32, 42_312, 42_312, 8, (1, 32, 1, 1, False)),
+    # the [N] sums and narrow rows
+    (4, 1, 42_312, 85_336, 256, (1, 1, 1, 1, False)),
+    (8, 3, 500, 900, 256, (1, 4, 1, 1, False)),
+    (4, 128, 42_312, 42_312, 256, (4, 32, 1, 1, False)),
+    # the perms gradient: 4 segments, 5500 wide, in 172 tiles
+    (4, 5500, 4, 48, 256, (1, 32, 1, 172, False)),
+    (4, 5500, 42_312, 48, 256, (4, 32, 4, 11, False)),
+    # past 32-bit indices
+    (4, 110, 4, 2**31 // 110 + 1, 256, (1, 32, 1, 4, True)),
+])
+def test_sum_launch_shapes(item, f, segments, rows, align, want):
+    """The segment-sum kernel's launch shape (csrc/segment_sum.cu's note):
+    the widest vector the row and the pointers allow unless its warps are
+    too few for the card, lanes for the row's vectors up to 32, more
+    vectors a lane only where the segments fill the card, 64-bit indices
+    past an int32; the tiles cover the row."""
+    got = t_seg.sum_launch(item, f, segments, rows, align)
+    assert tuple(got) == want
+    assert f % got.vec == 0 and got.vec * item <= 16
+    assert got.tiles * got.group * got.cpl >= f // got.vec
