@@ -10,7 +10,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
   1. device:  require CUDA; print the card's name and power limit.
   2. build:   compile every CUDA source of molkgnn_torch/csrc with nvcc;
               print the scorer's registers, shared memory, spills and
-              resident blocks per SM for each of its tile shapes.
+              resident blocks per SM for each of its tile shapes, and the
+              same for its backward's three kernels.
   3. kernels: hold the support-score kernel against its plain PyTorch
               version at the flagship serving shapes (buckets of 8192
               synthetic molecules at batch 1024: all degrees in one grouped
@@ -32,11 +33,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
               the throughput of both forms and a profile of where the
               device time goes.
   5. train:   the training path, with the scorer's torch.autograd.Function
-              (kernel forward, plain-torch backward). (a) Its gradients at
-              one flagship grouped launch of layer 0 and one of an N-hop
-              layer against autograd through einsum + max (max |diff| <=
-              1e-4 where the top two scores are more than 1e-4 apart), its
-              backward's time, and the memory a forward leaves behind.
+              (kernel forward, kernel backward: csrc/support_score_bwd.cu).
+              (a) Its gradients at one flagship grouped launch of layer 0
+              and one of an N-hop layer against autograd through einsum +
+              max (max |diff| <= 1e-4 where the top two scores are more
+              than 1e-4 apart); the backward kernels against their plain
+              version (the dense route: a scatter and two products a group)
+              on the same tensors, max |diff| <= 1e-5 * max(1, max |plain|)
+              for each gradient;
+              the backward's time by events and its kernels' device time
+              (profiler) per layer and a train step, beside its byte bound
+              and the dense route's; the memory a forward leaves behind.
               (b) 3 optimizer steps of the flagship with use_kernel=True
               and False from the same weights, batch 256 of tie-free
               molecules, dropout 0: losses within 1e-4 relative. (c) The
@@ -274,18 +281,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
               plans each); screen_library against predict_graphs, the
               largest gap printed; two eager epochs and two replayed epochs
               (scan_steps=8, dropout 0.25) from one state, each pair
-              bit-equal, 73 sums and 11 plans a step, eager against
-              replayed within 1e-5. (c) SchNet, DimeNet++, SphereNet and
-              ChIRoNet at their phase 8 and 9 batches: forward and backward
+              bit-equal, 73 sums, 11 plans and 4 scorer backward calls a
+              step, eager against replayed within 1e-5. (c) SchNet,
+              DimeNet++, SphereNet and ChIRoNet at their phase 8 and 9
+              batches: forward and backward
               twice, predictions and gradients bit-equal. (d) The kernels
               of two profiled replays of the flagship step, printed: none
               of index_add_'s, index_put_'s or scatter_add_'s, no sort,
-              only device sampling's searchsorted (6 a step).
+              only device sampling's searchsorted (6 a step); the scorer
+              backward's kernels, device ms and launches a step.
               The segment sum's launches and the plans are counted from 0
               on every path that reads the scorer's counts
               (launch_counts()); phases 4 and 5's main paths and 14's must
               launch both (5 sums and 2 plans a forward, 73 and 11 a train
-              step).
+              step). The scorer's backward is counted from 0 on the same
+              paths: 4 a train step on every kgnn training path (replays
+              counted), none on a forward without autograd.
 
 The last lines are the records of the phases' numbers, the kernel record
 ({"kernels": [...]}), the card's name and power limit, and
@@ -311,6 +322,13 @@ REPLACES = {
     "grouped_support_score": "molkgnn_tpu/ops/pallas_kernels.py:223",
 }
 KERNEL_SOURCE = "molkgnn_torch/csrc/support_score.cu"
+BACKWARD_SOURCE = "molkgnn_torch/csrc/support_score_bwd.cu"
+BACKWARD_REPLACES = ("molkgnn_tpu/ops/pallas_kernels.py:251 (_grouped_bwd, "
+                     "the backward of _grouped_vjp; _fss_bwd at :76 is the "
+                     "same at G = 1)")
+# Substring of the backward's three __global__ functions (da, db's partial
+# sums, their sum), as the profiler names them.
+BACKWARD_NAME = "score_grad_"
 SEGMENT_SOURCE = "molkgnn_torch/csrc/segment_sum.cu"
 PLAN_SOURCE = "molkgnn_torch/csrc/segment_plan.cu"
 # The segment sum replaces no TPU kernel: it sums in a fixed order what the
@@ -395,17 +413,20 @@ def reset_launches():
 
     for name in REPLACES:
         getattr(ss, name).launches = 0
+    ss.support_score_backward.launches = 0
     sg.segment_sum.launches = 0
     sg.segment_plan.launches = 0
 
 
 def launch_counts():
     """Each counted wrapper's launch count, by wrapper name: the scorer's
-    two, "segment_sum" and "segment_plan" (plans built, one a plan)."""
+    two, its backward's ("support_score_backward"), "segment_sum" and
+    "segment_plan" (plans built, one a plan)."""
     from molkgnn_torch.ops import segment as sg
     from molkgnn_torch.ops import support_score as ss
 
     counts = {name: getattr(ss, name).launches for name in REPLACES}
+    counts["support_score_backward"] = ss.support_score_backward.launches
     counts["segment_sum"] = sg.segment_sum.launches
     counts["segment_plan"] = sg.segment_plan.launches
     return counts
@@ -414,6 +435,19 @@ def launch_counts():
 def scorer_launches(counts):
     """The scorer wrappers' part of a ``launch_counts()`` dict."""
     return {name: counts[name] for name in REPLACES}
+
+
+def check_backward(counts, steps, what, per_step=4):
+    """The scorer backward's launches in a ``launch_counts()`` dict of a
+    path that took ``steps`` train steps: ``per_step`` a step (one a
+    layer; a fixed-set layer's 8 groups are one), replays counted, none for
+    a forward without autograd."""
+    n = counts["support_score_backward"]
+    log(f"  {what}: scorer backward launches {n} (want {per_step * steps}: "
+        f"{per_step} a train step, {steps} steps)")
+    if n != per_step * steps:
+        raise AssertionError(f"{what}: scorer backward launches {n}, want "
+                             f"{per_step * steps}")
 
 
 def nvidia_smi_line() -> str:
@@ -800,6 +834,7 @@ class Smoke:
         if scores.shape != (len(graphs),) or not np.isfinite(scores).all():
             raise AssertionError("scores are not finite or misshapen")
         self.main_launches = launches
+        check_backward(launch_counts(), 0, "serving main path")
 
         # --- the per-degree KernelConv path, counted ----------------------
         batch = batch_graphs(graphs[:BATCH], spec).to("cuda")
@@ -929,6 +964,7 @@ class Smoke:
         forward leaves allocated once its outputs are dropped."""
         from molkgnn_torch.ops import support_score as ss
         from molkgnn_torch.ops.permutations import num_perms
+        from molkgnn_torch.tools.backward_profile import bound
 
         torch = self.torch
         gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
@@ -986,18 +1022,72 @@ class Smoke:
                 f"{sum(4 * m * l for m, _, _, l in dims) / 2**20:.2f} MiB, "
                 "the loss's terms)")
             flat = ss._SupportScore.apply(ss.grouped_support_score, 4, *ta, *tb)
-            ms = time_ms(torch, lambda: torch.autograd.grad(
-                flat[:4], ta + tb, g_list, retain_graph=True))
-            self.backward_ms[layer] = ms
+            idxs = [x.detach() for x in flat[4:]]
+            before = ss.support_score_backward.launches
+            das, dbs = ss.support_score_backward(a_list, b_list, g_list, idxs)
+            if ss.support_score_backward.launches != before + 1:
+                raise AssertionError("the backward did not launch once")
+            err, worst = 0.0, 0.0
+            for got, a, b, g, idx in zip(zip(das, dbs), a_list, b_list,
+                                         g_list, idxs):
+                for x, w in zip(got, ss.support_score_backward_plain(
+                        a, b, g, idx)):
+                    diff = (x - w).abs().max().item()
+                    err = max(err, diff)
+                    worst = max(worst,
+                                diff / max(1.0, w.abs().max().item()))
+            log(f"    backward kernels against the plain version on the "
+                f"same tensors: max |diff| {err:.3e}, max |diff| / max(1, "
+                f"max |plain|) {worst:.3e} (limit 1e-5, each gradient)")
+            if worst > 1e-5:
+                raise AssertionError(f"{layer}: backward kernels differ from "
+                                     "the plain version")
+
+            def backward():
+                return torch.autograd.grad(flat[:4], ta + tb, g_list,
+                                           retain_graph=True)
+
+            def dense():
+                return [ss.support_score_backward_plain(a, b, g, idx)
+                        for a, b, g, idx in zip(a_list, b_list, g_list,
+                                                idxs)]
+
             shapes = [(m, d * ff, l, num_perms(d)) for m, d, ff, l in dims]
-            flops = sum(4 * m * k * l * p for m, k, l, p in shapes)
-            log(f"    backward (plain torch, a scatter and two products): "
-                f"{ms:.4f} ms, {flops / ms / 1e6:.1f} GFLOP/s of "
-                f"4*M*K*L*P")
-        self.backward_step_ms = (self.backward_ms["layer 0"]
-                                 + 3 * self.backward_ms["N-hop layer"])
+            rec = {"ms": time_ms(torch, backward),
+                   "device_ms": device_ms(torch, backward,
+                                          name=BACKWARD_NAME),
+                   "device_all_ms": device_ms(torch, backward, name=None),
+                   "plain_ms": time_ms(torch, dense),
+                   "plain_device_ms": device_ms(torch, dense, name=None),
+                   "bound_ms": bound(shapes)["ms"],
+                   "max_abs_err": err, "max_rel_err": worst}
+            self.backward_ms[layer] = rec
+            log(f"    backward (the kernels): {rec['ms']:.4f} ms by events "
+                f"({fmt_ms(rec['device_ms'])} of device time), bound "
+                f"{rec['bound_ms']:.4f} ms (bytes); the dense plain route "
+                f"(a scatter and two products a group) {rec['plain_ms']:.4f}"
+                f" ms by events ({fmt_ms(rec['plain_device_ms'])} of device "
+                f"time)")
+
+        def step(key):
+            parts = [self.backward_ms["layer 0"][key]] + 3 * [
+                self.backward_ms["N-hop layer"][key]]
+            return total(parts)
+
+        self.backward_step = {key: step(key) for key in (
+            "ms", "device_ms", "device_all_ms", "plain_ms", "plain_device_ms",
+            "bound_ms")}
+        self.backward_step["max_abs_err"] = max(
+            r["max_abs_err"] for r in self.backward_ms.values())
+        self.backward_step_ms = self.backward_step["ms"]
         log(f"  backward per flagship train step (layer 0 + 3 N-hop): "
-            f"{self.backward_step_ms:.4f} ms")
+            f"{self.backward_step_ms:.4f} ms by events, "
+            f"{fmt_ms(self.backward_step['device_ms'])} of device time in "
+            f"its kernels ({fmt_ms(self.backward_step['device_all_ms'])} in "
+            f"every kernel of the call), bound "
+            f"{self.backward_step['bound_ms']:.4f} ms; dense plain "
+            f"route {self.backward_step['plain_ms']:.4f} ms by events, "
+            f"{fmt_ms(self.backward_step['plain_device_ms'])} of device time")
 
     def kernel_vs_plain_training(self):
         """3 optimizer steps with the kernel and with the plain products
@@ -1098,6 +1188,8 @@ class Smoke:
         if launches["grouped_support_score"] != want:
             raise AssertionError("grouped launches are not 4 per step and "
                                  "per evaluation batch")
+        self.train_backward_launches = ss.support_score_backward.launches
+        check_backward(launch_counts(), trainer.step, "main path")
         losses = np.array(trainer.step_losses)
         if losses.shape != (trainer.step,) or not np.isfinite(losses).all():
             raise AssertionError(f"step losses not all finite: {losses}")
@@ -1302,16 +1394,19 @@ class Smoke:
         for name in order:
             trainer, per_step = trainers[name]
             ss.grouped_support_score.launches = 0
+            ss.support_score_backward.launches = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             losses = trainer._epoch_steps()
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             launched = ss.grouped_support_score.launches
-            if launched != per_step * len(losses):
+            backward = ss.support_score_backward.launches
+            if launched != per_step * len(losses) or backward != launched:
                 raise AssertionError(
-                    f"{what} {name}: {launched} scorer launches for "
-                    f"{len(losses)} steps, want {per_step} a step")
+                    f"{what} {name}: {launched} scorer launches and "
+                    f"{backward} of its backward for {len(losses)} steps, "
+                    f"want {per_step} a step each")
             if not np.isfinite(torch.stack(losses).cpu().numpy()).all():
                 raise AssertionError(f"{what} {name}: a loss is not finite")
             graphs = (len(losses) * trainer.config.batch_size
@@ -1322,8 +1417,9 @@ class Smoke:
         for name, r in rates.items():
             log(f"  {what} {name} on {card}: train "
                 f"{', '.join(f'{x:.1f}' for x in r)} graphs/s (whole "
-                f"epochs of steps, each synchronised once; scorer launches "
-                f"{trainers[name][1]} a step, replays counted)")
+                f"epochs of steps, each synchronised once; scorer and "
+                f"backward launches {trainers[name][1]} a step each, replays "
+                f"counted)")
         return rates
 
     def replay_profile(self, trainer, what, n=16):
@@ -1473,6 +1569,7 @@ class Smoke:
             if launches != want or counts["fused_support_score"]:
                 raise AssertionError(f"{name}: scorer launches {counts}, "
                                      f"want {want} grouped and 0 fused")
+            check_backward(counts, steps, name, per_step=layers)
             files = ["history.json", "test_result.log", "task_info.log",
                      "kernels/kernels.npz", "graph_embedding.npy"] + [
                 f"test_sample_scores_{tag}.log" for tag in tested]
@@ -1664,6 +1761,7 @@ class Smoke:
             f"{SCREEN_REPEAT} copies {repeat_gap:.3e} (reported; phase "
             f"14(b) prints the gap on these molecules with ties)")
         self.screen_launches = counts
+        check_backward(counts, 0, "screening")
 
         batches = [batch_graphs(graphs[s:s + BATCH], spec).to("cuda")
                    for s in range(0, len(graphs), BATCH)]
@@ -1787,6 +1885,7 @@ class Smoke:
         np.testing.assert_allclose(got[~np.isnan(got)], want, rtol=1e-4,
                                    atol=1e-4)
         self.export_launches = counts
+        check_backward(counts, 0, "exported program")
         self.screen_record["cli"] = {
             "records": len(got), "import_s": import_s, "screen_s": screen_s,
             "launches": launches, "max_diff": diff}
@@ -1850,6 +1949,7 @@ class Smoke:
         log(f"  captured against eager: max |diff| {gap:.3e}; launches "
             f"{eval_launches} for {nb} batches (4 a batch, replays counted)")
         self.eval_launches = counts
+        check_backward(counts, 0, "captured evaluation")
         self.eval_record = {
             "cli_eval_s": [e["eval_time_s"] for e in self.cli_history],
             "cli_valid_batches": valid_batches, "batches": nb,
@@ -2659,6 +2759,7 @@ class Smoke:
         if scorer_launches(launches) != {"grouped_support_score": want,
                         "fused_support_score": 0}:
             raise AssertionError(f"balanced launches {launches}, want {want}")
+        check_backward(launches, replayed.step, "balanced fit")
         if not all(np.isfinite(t.step_losses).all()
                    for t in (replayed, *eager)):
             raise AssertionError("a balanced loss is not finite")
@@ -2887,6 +2988,7 @@ class Smoke:
         if scorer_launches(launches) != {"grouped_support_score": want,
                         "fused_support_score": 0}:
             raise AssertionError(f"fixed-kernel launches {launches}")
+        check_backward(launches, len(batches), "fixed sets")
         if not equal or min(moved.values()) <= 0:
             raise AssertionError("fixed tensors moved or score weights "
                                  "did not")
@@ -2961,6 +3063,7 @@ class Smoke:
         if scorer_launches(launches) != {"grouped_support_score": want,
                         "fused_support_score": 0}:
             raise AssertionError(f"balanced CLI launches {launches}")
+        check_backward(launches, steps, "balanced CLI")
         try:
             rc = entry.main(common + ["--device_sampling", "--scan_steps",
                                       "16", "--default_root_dir",
@@ -3120,6 +3223,7 @@ class Smoke:
                           "fused_support_score": 0}:
                 raise AssertionError(f"{name}: launches {counts} for "
                                      f"{len(steps)} steps")
+            check_backward(counts, len(steps), name)
             if not np.isfinite(torch.stack(steps).cpu().numpy()).all():
                 raise AssertionError(f"{name}: a loss is not finite")
             log(f"  {name}: {len(steps)} steps, scorer launches {counts}")
@@ -3185,6 +3289,7 @@ class Smoke:
                 if scorer_launches(counts) != {"grouped_support_score": 4 * blocks,
                               "fused_support_score": 0}:
                     raise AssertionError(f"DP screening launches {counts}")
+                check_backward(counts, 0, "DP screening")
         card = torch.cuda.get_device_name(0)
         for name, s in secs.items():
             log(f"  screen_library {name} on {card}: "
@@ -3211,6 +3316,7 @@ class Smoke:
         if scorer_launches(counts) != {"grouped_support_score": want_eval,
                       "fused_support_score": 0}:
             raise AssertionError(f"DP evaluation launches {counts}")
+        check_backward(counts, 0, "DP evaluation")
         self.dp_record["screen"] = {
             "molecules": n, "seconds": secs,
             "graphs_per_s": {k: [n / x for x in v] for k, v in secs.items()},
@@ -3289,6 +3395,7 @@ class Smoke:
                 "grouped_support_score": want,
                                  "fused_support_score": 0}:
             raise AssertionError(f"rank 0 launches {ranks['launches']}")
+        check_backward(ranks["launches"], 3, "DP rank 0 of 2")
         self.dp_launches["dp_two_ranks"] = ranks["launches"]
         self.dp_record["two_ranks"] = {
             "spawn_s": spawn_s, "step_ms": ranks["step_ms"],
@@ -3354,6 +3461,7 @@ class Smoke:
         if launched["segment_sum"] <= 0 or scorer_launches(launched) != {
                 "fused_support_score": 0, "grouped_support_score": want}:
             raise AssertionError(f"DP CLI launches {launched}")
+        check_backward(launched, steps, "DP CLI")
         self.dp_launches["dp_cli"] = launched
 
         def scores():
@@ -3469,6 +3577,7 @@ class Smoke:
                       "fused_support_score": 0}:
             raise AssertionError(f"world-1 halo: launches {counts} for "
                                  f"{len(steps)} steps")
+        check_backward(counts, len(steps), "world-1 halo")
         if not np.isfinite(torch.stack(steps).cpu().numpy()).all():
             raise AssertionError("world-1 halo: a loss is not finite")
         log(f"  world-1 halo epoch: {len(steps)} steps, scorer launches "
@@ -3515,6 +3624,7 @@ class Smoke:
         if scorer_launches(counts) != {"grouped_support_score": 4 * len(host_losses),
                       "fused_support_score": 0}:
             raise AssertionError(f"host-fed halo: launches {counts}")
+        check_backward(counts, len(host_losses), "host-fed halo")
         batches = list(loader)
         part_s = {}
         for shards in (1, 4):
@@ -3674,8 +3784,13 @@ class Smoke:
         if got != want or any(v["fused_support_score"]
                               for v in ranks["launches"].values()):
             raise AssertionError(f"rank 0 launches {ranks['launches']}")
+        for path, steps in (("eval", 0), ("halo", 3), ("hybrid", 1),
+                            ("edge", 0)):
+            check_backward(ranks["launches"][path], steps,
+                           f"MP rank 0 of 4, {path}")
         total = {name: sum(v[name] for v in ranks["launches"].values())
-                 for name in (*REPLACES, "segment_sum", "segment_plan")}
+                 for name in (*REPLACES, "support_score_backward",
+                              "segment_sum", "segment_plan")}
         self.mp_launches["mp_four_ranks"] = total
         self.mp_record["four_ranks"] = {
             "spawn_s": spawn_s, "step_ms": ranks["step_ms"],
@@ -3748,6 +3863,7 @@ class Smoke:
         if launched["segment_sum"] <= 0 or scorer_launches(launched) != {
                 "fused_support_score": 0, "grouped_support_score": want}:
             raise AssertionError(f"halo CLI launches {launched}")
+        check_backward(launched, steps, "halo CLI")
         self.mp_launches["mp_cli"] = launched
         cards = self.torch.cuda.device_count()
         try:
@@ -3890,6 +4006,7 @@ class Smoke:
                       "fused_support_score": 0} or any(
                           scorer_launches(cos["fp64"][2]).values()):
             raise AssertionError(f"enantiomer_separation launches {counts}")
+        check_backward(counts, 0, "enantiomer_separation")
         return {"molecules": len(pairs), "fp64_max_diff": d64,
                 "fp32_max_diff": d32, "min_cos": float(card32.min()),
                 "median_cos": float(np.median(card32)), "launches": counts}
@@ -3956,6 +4073,7 @@ class Smoke:
             f"launches {counts}")
         if not np.isfinite([x for v in losses.values() for x in v]).all():
             raise AssertionError("SphereNet node vector: a loss is not finite")
+        check_backward(counts, 0, "SphereNet node vector (no scorer)")
         if not moved > 0 or any(scorer_launches(counts).values()):
             raise AssertionError(f"SphereNet node vector: the vector moved "
                                  f"{moved}, launches {counts}")
@@ -4163,6 +4281,7 @@ class Smoke:
             state = {key: v.detach().clone()
                      for key, v in trainer.model.state_dict().items()}
             counts = launch_counts()
+            check_backward(counts, len(losses), f"(b) {name} epoch")
             runs.setdefault(name, []).append(
                 (losses, state, counts["segment_sum"],
                  counts["grouped_support_score"], counts["segment_plan"]))
@@ -4292,6 +4411,17 @@ class Smoke:
         if sorts or searches > 2 * 6:
             raise AssertionError("the plans' library sorts or searchsorted "
                                  "are in the replayed step")
+        backward = [(ms, count, key) for ms, count, key in rows
+                    if BACKWARD_NAME in key]
+        launched = sum(count for _, count, _ in backward) / 2
+        backward_ms = sum(ms for ms, _, _ in backward) / 2
+        log(f"  (d) the scorer backward's kernels {backward_ms:.4f} ms a "
+            f"step, {launched:g} launches a step (4 calls of up to 3 "
+            f"kernels)")
+        if not backward:
+            raise AssertionError("the scorer backward's kernels are not in "
+                                 "the replayed step")
+        self.repeat_record["replay_backward_ms_a_step"] = backward_ms
         self.repeat_record["replay_kernels"] = [
             {"ms": ms, "count": count, "name": key} for ms, count, key in rows]
         self.repeat_record["replay_sorts"] = sorts
@@ -4456,9 +4586,40 @@ class Smoke:
                         "bound_ms": bound_ms(shapes8[1::2])[0],
                     },
                 })
+        entries.append(self.backward_record(new_paths))
         entries.append(self.segment_record(new_paths))
         entries.append(self.plan_record(new_paths))
         return {"kernels": entries}
+
+    def backward_record(self, new_paths):
+        """The scorer backward's entry of the kernel record: phase 5's
+        times a flagship train step (layer 0 + 3 N-hop layers; events, the
+        profiler's device time of its kernels, the byte bound, the dense
+        plain route), its largest difference from the plain version there,
+        and its launches on the main training path (fit + test), each path
+        counted from 0. No one PyTorch call computes it: library_ms is null
+        and the dense route (the plain version) is its yardstick."""
+        t = self.backward_step
+        return {
+            "name": "support_score_backward",
+            "route": "cuda",
+            "source": BACKWARD_SOURCE,
+            "replaces": BACKWARD_REPLACES,
+            "launches": self.train_backward_launches,
+            "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "device_ms": t["device_ms"],
+            "plain_device_ms": t["plain_device_ms"],
+            "per_layer": self.backward_ms,
+            "path": "training: Trainer.fit + test, 4 a train step (one a "
+            "layer), none for an evaluation batch; times a train step",
+            "path_launches": self.path_counts(new_paths,
+                                              "support_score_backward"),
+        }
 
     def path_counts(self, new_paths, name):
         """``name``'s launches on the CLI's path and every path of
@@ -4739,6 +4900,11 @@ def main() -> int:
             log("  support_score tile " + ", ".join(
                 f"{k} {v}" for k, v in facts.items()
             ))
+        from molkgnn_torch.ops.support_score import backward_facts
+
+        for kernel, facts in backward_facts().items():
+            log(f"  support_score backward {kernel}: " + ", ".join(
+                f"{k} {v}" for k, v in facts.items()))
 
         phase = "kernels"
         log("[3] kernels against their plain versions")

@@ -29,20 +29,37 @@ caller that captures (the ``Trainer``'s train step, the block scorer of
 ``serving/blocks.py``) takes the capture's count back with
 ``take_launches`` (a capture runs nothing) and adds it at every replay with
 ``add_launches``, so that ``launches`` counts the kernel's launches on the
-card. The registry (``SCORERS``) holds the segment sum's wrapper and its
-plan builder too.
+card. The registry (``SCORERS``) holds the backward's wrapper, the segment
+sum's and its plan builder's too.
 
 Gradients: when autograd records (grad enabled and an input requires grad),
 both wrappers go through one ``torch.autograd.Function`` over G groups,
 ``_SupportScore``. Its backward is the JAX custom VJP
-(``pallas_kernels.py:251-268``) in plain torch: the gradient flows only
-through the chosen permutation: one scatter of the output gradient to it
-and two products per group. The JAX backward is XLA, not Pallas, so it has
-no kernel of its own here either.
-Without autograd (``torch.no_grad``/``inference_mode``) the wrappers call
-the op directly and the Function costs nothing. The Function stays around
-the op (rather than ``torch.library.register_autograd``) so that the
-per-group views and the saved argmaxes are those of the training slice.
+(``pallas_kernels.py:76`` and ``:251``): the gradient flows only through
+the chosen permutation,
+
+    da[m, k]    = sum_l g[m, l] * b[idx[m, l], k, l]
+    db[p, k, l] = sum_m [idx[m, l] == p] * a[m, k] * g[m, l],
+
+for the groups and inputs that need it (``needs_input_grad``), through one
+more registered op, ``torch.ops.molkgnn.support_score_backward``:
+
+  * CUDA: the kernels of ``csrc/support_score_bwd.cu`` (da; db's partial
+    sums over fixed ranges of rows, then their sum in range order), one
+    call for all the groups, counted in ``support_score_backward.launches``.
+    No atomics and no host sync: a call repeats bit for bit and a CUDA
+    graph captures it;
+  * CPU: the plain version, ``support_score_backward_plain`` (the output
+    gradient scattered to the chosen permutation of a zero [M, P, L]
+    tensor, then two products), uncounted;
+  * fake (meta): the output shapes.
+
+A CUDA tensor launches the kernels or raises; it never reaches the plain
+version. Without autograd (``torch.no_grad``/``inference_mode``) the
+wrappers call the forward op directly and the Function costs nothing. The
+Function stays around the ops (rather than
+``torch.library.register_autograd``) so that the per-group views and the
+saved argmaxes are those of the training slice.
 """
 
 from __future__ import annotations
@@ -68,6 +85,24 @@ def support_score_plain(a: torch.Tensor, b: torch.Tensor):
     sc = torch.einsum("mk,pkl->mlp", a, b)
     best, idx = sc.max(dim=2)
     return best, idx.to(torch.int32)
+
+
+def support_score_backward_plain(a: torch.Tensor, b: torch.Tensor,
+                                 g: torch.Tensor, idx: torch.Tensor,
+                                 need_a: bool = True, need_b: bool = True):
+    """Plain version of one group's backward, the dense route: the output
+    gradient g [M, L] scattered to the chosen permutation of a zero
+    [M, P, L] tensor, gp[m, idx[m, l], l] = g[m, l], then
+    da = sum_{p,l} gp[m, p, l] b[p, k, l] and db[p] = a^T gp[:, p].
+
+    Computes in the inputs' dtype. Returns (da [M, K] or None, db [P, K, L]
+    or None), each None where it is not needed.
+    """
+    gp = g.new_zeros(idx.shape[0], b.shape[0], idx.shape[1]).scatter_(
+        1, idx.long().unsqueeze(1), g.unsqueeze(1))
+    da = torch.einsum("mpl,pkl->mk", gp, b) if need_a else None
+    db = torch.einsum("mk,mpl->pkl", a, gp) if need_b else None
+    return da, db
 
 
 def _device_of(tensors: Sequence[torch.Tensor]) -> torch.device:
@@ -238,6 +273,224 @@ def _support_score_fake(a_list, b_list, fused):
             a_list[0].new_empty(n, dtype=torch.int32))
 
 
+def backward_offsets(shapes, need_a, need_b):
+    """Element offsets of the groups' da [M, K] and db [P, K, L] in two flat
+    buffers (a gradient that is not needed takes no room), and the two
+    buffers' lengths: (da offsets, da length, db offsets, db length).
+    shapes: [(M, K, L, P)]."""
+    da_off, db_off, n_da, n_db = [], [], 0, 0
+    for (m, k, l, p), want_a, want_b in zip(shapes, need_a, need_b):
+        da_off.append(n_da)
+        db_off.append(n_db)
+        n_da += m * k if want_a else 0
+        n_db += p * k * l if want_b else 0
+    return da_off, n_da, db_off, n_db
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    """The built backward library, with its C signatures declared."""
+    from molkgnn_torch.ops._build import library
+
+    lib = library("support_score_bwd")
+    if lib.molkgnn_support_score_backward.argtypes is None:
+        args = ctypes.POINTER(ctypes.c_int64)
+        lib.molkgnn_support_score_backward.argtypes = [
+            ctypes.c_int, args, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p,
+        ]
+        lib.molkgnn_support_score_backward.restype = ctypes.c_int
+        lib.molkgnn_support_score_backward_scratch.argtypes = [
+            ctypes.c_int, args,
+        ]
+        lib.molkgnn_support_score_backward_scratch.restype = ctypes.c_int64
+        lib.molkgnn_support_score_backward_facts.argtypes = [
+            ctypes.POINTER(ctypes.c_int)
+        ]
+        lib.molkgnn_support_score_backward_facts.restype = ctypes.c_int
+        lib.molkgnn_support_score_backward_error_string.argtypes = [
+            ctypes.c_int
+        ]
+        lib.molkgnn_support_score_backward_error_string.restype = (
+            ctypes.c_char_p)
+    return lib
+
+
+def _raise_on_backward(lib, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.molkgnn_support_score_backward_error_string(err).decode()
+        raise RuntimeError(
+            f"support score backward kernels {what} failed: {msg} ({err})"
+        )
+
+
+@functools.lru_cache(maxsize=256)
+def _backward_scratch(shapes: tuple, need_a: tuple, need_b: tuple) -> int:
+    """Floats of scratch (db's partial sums) for groups of these
+    (M, K, L, P) and needs, in launch order; asked of the library, which
+    lays the partial sums out."""
+    lib = _bwd_lib()
+    args = [v for shape, want_a, want_b in zip(shapes, need_a, need_b)
+            for v in (0, 0, 0, 0, int(want_a), int(want_b), *shape)]
+    n = lib.molkgnn_support_score_backward_scratch(
+        len(shapes), (ctypes.c_int64 * len(args))(*args))
+    if n < 0:
+        raise ValueError(f"support backward does not take groups {shapes}")
+    return n
+
+
+def _check_backward(a, b, g, idx) -> None:
+    _check(a, b)
+    m, l = a.shape[0], b.shape[2]
+    if g.dtype != torch.float32 or idx.dtype != torch.int32:
+        raise TypeError(
+            f"support backward takes a float32 gradient and int32 argmaxes, "
+            f"got {g.dtype} and {idx.dtype}"
+        )
+    if g.shape != (m, l) or idx.shape != (m, l):
+        raise ValueError(
+            f"support backward: gradient and argmaxes of shape {(m, l)}, got "
+            f"{tuple(g.shape)} and {tuple(idx.shape)}"
+        )
+    if not (g.is_contiguous() and idx.is_contiguous()):
+        raise ValueError("support backward takes a contiguous gradient and "
+                         "argmaxes")
+
+
+def _backward_launch(a_list, b_list, g_list, idx_list, need_a, need_b):
+    """One call of the backward kernels over all groups; returns the flat
+    (da, db) buffers at ``backward_offsets``. db's partial sums go to a
+    scratch buffer of their own, released (stream-ordered) when the call
+    returns."""
+    n = len(a_list)
+    if not 1 <= n <= MAX_GROUPS:
+        raise ValueError(
+            f"support backward takes 1..{MAX_GROUPS} groups, got {n}"
+        )
+    shapes = []
+    for a, b, g, idx in zip(a_list, b_list, g_list, idx_list):
+        _check_backward(a, b, g, idx)
+        shapes.append((a.shape[0], a.shape[1], b.shape[2], b.shape[0]))
+    da_off, n_da, db_off, n_db = backward_offsets(shapes, need_a, need_b)
+    device = a_list[0].device
+    da = torch.empty(n_da, dtype=torch.float32, device=device)
+    db = torch.empty(n_db, dtype=torch.float32, device=device)
+    order = block_order(shapes)
+    scratch = _backward_scratch(tuple(shapes[i] for i in order),
+                                tuple(need_a[i] for i in order),
+                                tuple(need_b[i] for i in order))
+    part = torch.empty(scratch, dtype=torch.float32, device=device)
+    args = []
+    for i in order:
+        args += (
+            a_list[i].data_ptr(), b_list[i].data_ptr(), g_list[i].data_ptr(),
+            idx_list[i].data_ptr(),
+            da.data_ptr() + 4 * da_off[i] if need_a[i] else 0,
+            db.data_ptr() + 4 * db_off[i] if need_b[i] else 0, *shapes[i],
+        )
+    lib = _bwd_lib()
+    same = device.index == torch.cuda.current_device()
+    with contextlib.nullcontext() if same else torch.cuda.device(device):
+        err = lib.molkgnn_support_score_backward(
+            n, (ctypes.c_int64 * len(args))(*args), part.data_ptr(), scratch,
+            torch._C._cuda_getCurrentRawStream(device.index),
+        )
+    _raise_on_backward(lib, err, "launch")
+    return da, db
+
+
+@torch.library.custom_op(
+    "molkgnn::support_score_backward", mutates_args=(), device_types="cpu"
+)
+def support_score_backward_op(
+    a_list: List[torch.Tensor], b_list: List[torch.Tensor],
+    g_list: List[torch.Tensor], idx_list: List[torch.Tensor],
+    need_a: List[bool], need_b: List[bool],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The scorer's backward over G groups as one op: (da, db) flat, group
+    after group at ``backward_offsets`` (see the module doc). This body is
+    the CPU version, the plain one."""
+    das, dbs = [], []
+    for a, b, g, idx, want_a, want_b in zip(a_list, b_list, g_list,
+                                            idx_list, need_a, need_b):
+        da, db = support_score_backward_plain(a, b, g, idx, want_a, want_b)
+        if da is not None:
+            das.append(da.reshape(-1))
+        if db is not None:
+            dbs.append(db.reshape(-1))
+    empty = a_list[0].new_empty(0)
+    return (torch.cat(das) if das else empty,
+            torch.cat(dbs) if dbs else empty.clone())
+
+
+@support_score_backward_op.register_kernel("cuda")
+def _support_score_backward_cuda(a_list, b_list, g_list, idx_list, need_a,
+                                 need_b):
+    out = _backward_launch(a_list, b_list, g_list, idx_list, need_a, need_b)
+    support_score_backward.launches += 1
+    return out
+
+
+@support_score_backward_op.register_fake
+def _support_score_backward_fake(a_list, b_list, g_list, idx_list, need_a,
+                                 need_b):
+    _, n_da, _, n_db = backward_offsets(
+        [(a.shape[0], a.shape[1], b.shape[2], b.shape[0])
+         for a, b in zip(a_list, b_list)], need_a, need_b)
+    return a_list[0].new_empty(n_da), a_list[0].new_empty(n_db)
+
+
+def support_score_backward(a_list, b_list, g_list, idx_list, need_a=None,
+                           need_b=None):
+    """The scorer's backward over G groups: ([da_g or None], [db_g or None])
+    for a_list[g] [M, K], b_list[g] [P, K, L], the output gradients
+    g_list[g] [M, L] and the forward's argmaxes idx_list[g] [M, L] (int32),
+    each gradient only where ``need_a``/``need_b`` (default: all) asks for
+    it. Through the op: the plain version on the CPU, one call of the
+    kernels for CUDA tensors, counted in ``support_score_backward.launches``.
+    The gradients are views of the op's two flat buffers."""
+    n = len(a_list)
+    need_a = [True] * n if need_a is None else [bool(x) for x in need_a]
+    need_b = [True] * n if need_b is None else [bool(x) for x in need_b]
+    if not (len(b_list) == len(g_list) == len(idx_list) == len(need_a)
+            == len(need_b) == n):
+        raise ValueError("support backward: argument lists differ in length")
+    if not any(need_a) and not any(need_b):
+        return [None] * n, [None] * n
+    _device_of([*a_list, *b_list, *g_list, *idx_list])  # raises on mixed
+    shapes = [(a.shape[0], a.shape[1], b.shape[2], b.shape[0])
+              for a, b in zip(a_list, b_list)]
+    da, db = support_score_backward_op(
+        list(a_list), list(b_list), [g.contiguous() for g in g_list],
+        list(idx_list), need_a, need_b)
+    da_off, _, db_off, _ = backward_offsets(shapes, need_a, need_b)
+    das, dbs = [], []
+    for (m, k, l, p), o_a, o_b, want_a, want_b in zip(
+            shapes, da_off, db_off, need_a, need_b):
+        das.append(da[o_a:o_a + m * k].view(m, k) if want_a else None)
+        dbs.append(db[o_b:o_b + p * k * l].view(p, k, l) if want_b else None)
+    return das, dbs
+
+
+support_score_backward.launches = 0
+
+BACKWARD_FACT_NAMES = ("registers", "static_smem_bytes", "local_bytes",
+                       "blocks_per_sm")
+BACKWARD_KERNELS = ("da", "db", "db_sum")
+
+
+def backward_facts() -> dict:
+    """The built backward kernels' facts on the current device, by kernel
+    (see ``molkgnn_support_score_backward_facts`` in
+    csrc/support_score_bwd.cu)."""
+    lib = _bwd_lib()
+    n = len(BACKWARD_FACT_NAMES)
+    out = (ctypes.c_int * (n * len(BACKWARD_KERNELS)))()
+    _raise_on_backward(lib, lib.molkgnn_support_score_backward_facts(out),
+                       "query")
+    return {name: dict(zip(BACKWARD_FACT_NAMES, out[i * n:(i + 1) * n]))
+            for i, name in enumerate(BACKWARD_KERNELS)}
+
+
 FACT_NAMES = (
     "registers", "static_smem_bytes", "dynamic_smem_bytes", "blocks_per_sm",
     "local_bytes", "perm_chunk", "block_rows", "block_kernels", "threads",
@@ -282,9 +535,10 @@ class _SupportScore(torch.autograd.Function):
     buffers, and the float one is not saved, so it is freed with the last
     view of a ``best``.
 
-    Backward, per group: the output gradient g [M, L] is scattered to the
-    chosen permutation, gp[m, idx[m, l], l] = g[m, l] (zero elsewhere), then
-    da = sum_{p,l} gp[m,p,l] b[p,k,l] and db[p] = a^T gp[:, p].
+    Backward: ``support_score_backward`` over every group at once, for the
+    inputs that need a gradient (fixed kernel sets give b without one; a
+    fixed-set layer passes one a to two groups, and autograd adds the two
+    results).
     """
 
     @staticmethod
@@ -295,25 +549,21 @@ class _SupportScore(torch.autograd.Function):
         ctx.mark_non_differentiable(*idxs)
         ctx.save_for_backward(*a_list, *b_list, *idxs)
         ctx.groups = g
+        # No zero gradients made for the argmaxes (or for an unused best).
+        ctx.set_materialize_grads(False)
         return (*[best for best, _ in outs], *idxs)
 
     @staticmethod
     def backward(ctx, *grads):
         g = ctx.groups
         saved = ctx.saved_tensors
-        need_a = ctx.needs_input_grad[2:2 + g]
-        need_b = ctx.needs_input_grad[2 + g:]
-        das, dbs = [], []
-        for i in range(g):
-            a, b, idx = saved[i], saved[g + i], saved[2 * g + i]
-            m, l = idx.shape
-            gp = grads[i].new_zeros(m, b.shape[0], l).scatter_(
-                1, idx.long().unsqueeze(1), grads[i].unsqueeze(1)
-            )  # [M, P, L]
-            das.append(torch.einsum("mpl,pkl->mk", gp, b) if need_a[i]
-                       else None)
-            dbs.append(torch.einsum("mk,mpl->pkl", a, gp) if need_b[i]
-                       else None)
+        a_list, idxs = saved[:g], saved[2 * g:]
+        g_list = [grad if grad is not None
+                  else idx.new_zeros(idx.shape, dtype=a.dtype)
+                  for grad, a, idx in zip(grads[:g], a_list, idxs)]
+        das, dbs = support_score_backward(
+            a_list, saved[g:2 * g], g_list, idxs,
+            ctx.needs_input_grad[2:2 + g], ctx.needs_input_grad[2 + g:])
         return (None, None, *das, *dbs)
 
 
@@ -353,10 +603,10 @@ grouped_support_score.launches = 0
 
 
 # The counted kernel wrappers, whose ``launches`` a captured graph's replays
-# add to: the scorer's two, the segment sum's and its plan builder's
-# (``ops/segment.py``).
-SCORERS = (fused_support_score, grouped_support_score, segment_sum,
-           segment_plan)
+# add to: the scorer's two, its backward's, the segment sum's and its plan
+# builder's (``ops/segment.py``).
+SCORERS = (fused_support_score, grouped_support_score, support_score_backward,
+           segment_sum, segment_plan)
 
 
 def launch_counts() -> List[int]:

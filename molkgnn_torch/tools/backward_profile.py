@@ -1,63 +1,92 @@
 #!/usr/bin/env python3
 """Time and profile the support scorer's backward on one GPU.
 
-Runs ``_SupportScore``'s backward (a scatter of the output gradient and
-two products per group) at the flagship's grouped launches, layer 0
-(F = 28) and an N-hop layer (F = 110), with the serving bucket capacities
-of 8192 synthetic molecules at batch 1024. For each it prints the host's
-dispatch time and the wall time per call (20 calls after 5 warm-up calls,
-synchronised once), the profiler's device time by kernel for one call,
-and the wall time again after that profiler session, which shows what a
-finished profiler leaves on later launches.
+Three measurements, in one process, fp32, TF32 off:
+
+  1. The backward alone (``_SupportScore``'s backward, reached through
+     ``torch.autograd.grad``) at the flagship's grouped launches, layer 0
+     (F = 28) and an N-hop layer (F = 110), with the serving bucket
+     capacities of 8192 synthetic molecules at batch 1024: CUDA events over
+     20 back-to-back calls after 5, the profiler's device time of 20 calls
+     by kernel, and the byte bound (each input read once, each output
+     written once, over 3.35 TB/s). Where the package has the dense plain
+     route as a function of its own (``support_score_backward_plain``: a
+     scatter to [M, P, L] and two products a group), it is timed on the
+     same tensors beside it.
+  2. Two eager flagship train steps (batch 1024, device sampling) profiled,
+     with every call of ``_SupportScore.backward`` inside a
+     ``torch.profiler.record_function`` range that this tool adds for the
+     profile only: the kernels under the range (device ms and launches a
+     step), and the step's device ms.
+  3. Two profiled replays of the flagship's captured step (``scan_steps=16``,
+     device sampling): every kernel, device ms and launches a step.
+
+Prints the card's name and power limit, a readable summary, and one JSON
+line. It uses only names that the port had before its backward kernels
+(and the plain dense route where the package has it), so another
+checkout's package is profiled by the same file:
 
     python3 -m molkgnn_torch.tools.backward_profile
+    PYTHONPATH=<checkout> python3 <this file>
 """
 
 from __future__ import annotations
 
+import json
 import subprocess
-import time
 
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile, record_function
 
+import molkgnn_torch
+from molkgnn_torch.ops import _build
 from molkgnn_torch.ops import support_score as ss
 from molkgnn_torch.ops.permutations import num_perms
+from molkgnn_torch.tools.segment_times import event_ms, profiled_kernels
 
 CAPACITIES = (19232, 13640, 8144, 7064)  # rows for degrees 1-4
 KERNELS = (10, 20, 30, 50)
-REPS = 20
+HBM_RATE = 3.35e12  # bytes/s, H100 SXM
+FP32_PEAK = 67e12  # FLOP/s, fp32 outside the tensor cores
+RANGE = "molkgnn::support_score_backward_range"
+BATCH = 1024
 
 
-def per_call_ms(fn) -> tuple[float, float]:
-    """(host dispatch, wall) ms per call of ``fn`` over REPS calls."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(REPS):
-        fn()
-    t1 = time.perf_counter()
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    return 1e3 * (t1 - t0) / REPS, 1e3 * (t2 - t0) / REPS
+def bound(shapes) -> dict:
+    """The backward's least time: each of a, b, g, idx read once and da, db
+    written once, over the memory rate, against 4*M*K*L operations (2 an
+    FMA, da and db) over the fp32 peak. shapes: [(M, K, L, P)]."""
+    nbytes = sum(4 * (2 * m * k + 2 * p * k * l + 2 * m * l)
+                 for m, k, l, p in shapes)
+    flops = sum(4 * m * k * l for m, k, l, _ in shapes)
+    t_bytes, t_ops = nbytes / HBM_RATE * 1e3, flops / FP32_PEAK * 1e3
+    return {"bytes": nbytes, "flops": flops, "ms": max(t_bytes, t_ops),
+            "by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def main() -> None:
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-    ).stdout.strip())
+def layer_operands(f, gen):
+    """(a_list, b_list, shapes) of one grouped launch with F features."""
+    ta, tb, shapes = [], [], []
+    for d in range(1, 5):
+        m, k, l, p = CAPACITIES[d - 1], d * f, KERNELS[d - 1], num_perms(d)
+        ta.append(torch.randn(m, k, device="cuda", generator=gen)
+                  .requires_grad_())
+        tb.append(torch.randn(p, k, l, device="cuda", generator=gen)
+                  .requires_grad_())
+        shapes.append((m, k, l, p))
+    return ta, tb, shapes
+
+
+def backward_alone() -> dict:
+    """Measurement 1, per layer."""
     gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
     for name, f in (("layer 0", 28), ("N-hop layer", 110)):
-        ta, tb = [], []
-        for d in range(1, 5):
-            ta.append(torch.randn(CAPACITIES[d - 1], d * f, device="cuda",
-                                  generator=gen).requires_grad_())
-            tb.append(torch.randn(num_perms(d), d * f, KERNELS[d - 1],
-                                  device="cuda", generator=gen)
-                      .requires_grad_())
+        ta, tb, shapes = layer_operands(f, gen)
         flat = ss._SupportScore.apply(ss.grouped_support_score, 4, *ta, *tb)
-        grads = [torch.randn_like(x) for x in flat[:4]]
+        grads = [torch.randn(x.shape, device="cuda", generator=gen)
+                 for x in flat[:4]]
 
         def backward():
             return torch.autograd.grad(flat[:4], ta + tb, grads,
@@ -65,23 +94,155 @@ def main() -> None:
 
         for _ in range(5):
             backward()
-        host, wall = per_call_ms(backward)
+        rec = {"shapes": shapes, "event_ms": event_ms(backward),
+               "kernels": sorted(profiled_kernels(backward), reverse=True),
+               "bound": bound(shapes)}
+        rec["device_ms"] = sum(ms for ms, _ in rec["kernels"])
+        plain = getattr(ss, "support_score_backward_plain", None)
+        if plain is not None:
+            idxs = [x.detach() for x in flat[4:]]
+            args = ([x.detach() for x in ta], [x.detach() for x in tb],
+                    grads, idxs)
+
+            def dense():
+                return [plain(a, b, g, i, True, True)
+                        for a, b, g, i in zip(*args)]
+
+            rec["plain_event_ms"] = event_ms(dense)
+            rec["plain_device_ms"] = sum(
+                ms for ms, _ in profiled_kernels(dense))
+        out[name] = rec
+    return out
+
+
+def flagship_trainer(scan_steps):
+    from molkgnn_torch.data.dataset import make_synthetic_dataset
+    from molkgnn_torch.graphs.batch import spec_for_graphs
+    from molkgnn_torch.models.kgnn import MolKGNNNet
+    from molkgnn_torch.training.model import GNNModel
+    from molkgnn_torch.training.trainer import TrainConfig, Trainer
+
+    ds = make_synthetic_dataset(num_graphs=8192)
+    spec = spec_for_graphs(ds.graphs, BATCH)
+    gen = torch.Generator().manual_seed(0)
+    model = GNNModel(MolKGNNNet(num_layers=4, use_kernel=True,
+                                generator=gen), generator=gen)
+    return Trainer(model, ds, spec, TrainConfig(
+        batch_size=BATCH, progress=False, scan_steps=scan_steps,
+        device_sampling=True))
+
+
+def kernels_under(prof, name) -> tuple[dict, int]:
+    """({kernel: (device ms, launches)} of the kernels launched under every
+    CPU range called ``name`` (its descendants' kernels), the ranges)."""
+    out: dict = {}
+    ranges = 0
+
+    def walk(evt):
+        for k in evt.kernels:
+            ms, n = out.get(k.name, (0.0, 0))
+            out[k.name] = (ms + k.duration / 1e3, n + 1)
+        for child in evt.cpu_children:
+            walk(child)
+
+    for evt in prof.events():
+        if evt.name == name and evt.device_type == DeviceType.CPU:
+            ranges += 1
+            walk(evt)
+    return out, ranges
+
+
+def step_rows(prof, n):
+    """[(device ms a step, launches a step, name)] of every kernel."""
+    return sorted(
+        ((evt.self_device_time_total / 1e3 / n, evt.count / n, evt.key)
+         for evt in prof.key_averages()
+         if evt.device_type == DeviceType.CUDA
+         and evt.self_device_time_total > 0
+         and not getattr(evt, "is_user_annotation", False)),
+        reverse=True)
+
+
+def eager_step() -> dict:
+    """Measurement 2: the backward's kernels inside an eager train step."""
+    trainer = flagship_trainer(1)
+    for _ in range(3):
+        trainer._device_step()
+    torch.cuda.synchronize()
+    original = ss._SupportScore.backward
+
+    def ranged(ctx, *grads):
+        with record_function(RANGE):
+            return original(ctx, *grads)
+
+    ss._SupportScore.backward = staticmethod(ranged)
+    try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            backward()
+            for _ in range(2):
+                trainer._device_step()
             torch.cuda.synchronize()
-        rows = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-        device = sum(e.self_device_time_total for e in rows) / 1e3
-        launches = sum(e.count for e in rows)
-        host_after, wall_after = per_call_ms(backward)
-        print(f"{name}: host dispatch {host:.3f} ms, wall {wall:.3f} ms a "
-              f"call; device {device:.3f} ms in {launches} kernels; after "
-              f"the profiler: host {host_after:.3f} ms, wall "
-              f"{wall_after:.3f} ms")
-        for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
-            print(f"    {e.self_device_time_total / 1e3:8.3f} ms  "
-                  f"x{e.count:<3d} {e.key[:90]}")
+    finally:
+        ss._SupportScore.backward = staticmethod(original)
+    under, ranges = kernels_under(prof, RANGE)
+    rows = step_rows(prof, 2)
+    return {
+        "backward_ranges_a_step": ranges / 2,
+        "backward_kernels": sorted(
+            ([ms / 2, n / 2, k] for k, (ms, n) in under.items()),
+            reverse=True),
+        "backward_device_ms": sum(ms for ms, _ in under.values()) / 2,
+        "step_device_ms": sum(ms for ms, _, _ in rows),
+        "step_top": rows[:15],
+    }
+
+
+def replayed_step() -> dict:
+    """Measurement 3: two profiled replays of the captured step."""
+    trainer = flagship_trainer(16)
+    for _ in range(20):
+        trainer._graph_step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            trainer._graph_step()
+        torch.cuda.synchronize()
+    rows = step_rows(prof, 2)
+    return {"device_ms": sum(ms for ms, _, _ in rows), "kernels": rows}
+
+
+def main() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+    ).stdout.strip()
+    print(card, flush=True)
+    _build.build_all()
+    out = {"package": molkgnn_torch.__file__, "card": card,
+           "alone": backward_alone(), "eager_step": eager_step(),
+           "replayed_step": replayed_step()}
+    for name, rec in out["alone"].items():
+        print(f"{name}: backward {rec['event_ms']:.4f} ms by events, "
+              f"{rec['device_ms']:.4f} ms of device time, bound "
+              f"{rec['bound']['ms']:.4f} ms ({rec['bound']['by']}); dense "
+              f"plain route {rec.get('plain_event_ms')} ms by events, "
+              f"{rec.get('plain_device_ms')} ms of device time")
+        for ms, key in rec["kernels"][:8]:
+            print(f"    {ms:8.4f} ms  {key[:100]}")
+    step = out["eager_step"]
+    print(f"eager step: device {step['step_device_ms']:.3f} ms, the "
+          f"scorer's backward {step['backward_device_ms']:.4f} ms a step "
+          f"({step['backward_ranges_a_step']:g} backward calls a step):")
+    for ms, n, key in step["backward_kernels"]:
+        print(f"    {ms:8.4f} ms  x{n:<5g} {key[:100]}")
+    rep = out["replayed_step"]
+    print(f"replayed step: device {rep['device_ms']:.3f} ms a step; top:")
+    for ms, n, key in rep["kernels"][:15]:
+        print(f"    {ms:8.4f} ms  x{n:<5g} {key[:100]}")
+    print(json.dumps(out), flush=True)
 
 
 if __name__ == "__main__":

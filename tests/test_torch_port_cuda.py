@@ -178,8 +178,8 @@ def _plain_grads(a_list, b_list, g_list):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["ragged", "permutations", "flagship_nhop"])
 def test_cuda_scorer_gradients_match_plain(case):
-    """The Function on the card (kernel forward, plain-torch backward)
-    against autograd through the plain version: max |diff| <= 1e-4. The
+    """The Function on the card (kernel forward, kernel backward) against
+    autograd through the plain version: max |diff| <= 1e-4. The
     upstream gradient is zero where the top two scores are within 1e-4, so
     that no entry rests on an argmax the two may break differently."""
     _needs_card()
@@ -197,7 +197,9 @@ def test_cuda_scorer_gradients_match_plain(case):
     before = ss.grouped_support_score.launches
     outs = ss.grouped_support_score(ta, tb)
     assert ss.grouped_support_score.launches == before + 1
+    before = ss.support_score_backward.launches
     sum((best * g).sum() for (best, _), g in zip(outs, g_list)).backward()
+    assert ss.support_score_backward.launches == before + 1
     want = _plain_grads(a_list, b_list, g_list)
     for got, w in zip([t.grad for t in ta + tb], want):
         assert (got - w).abs().max().item() <= 1e-4
@@ -1430,3 +1432,167 @@ def test_cuda_flagship_forward_and_step_repeat_bit_equal():
         states.append({k: v.clone() for k, v in model.state_dict().items()})
     for k, v in states[0].items():
         assert torch.equal(v, states[1][k]), k
+
+
+# The scorer's backward: kernel cases beside CASES' ragged, permutations and
+# flagship_nhop. The flagship's layer 0 (K = 28 * d) and P outside
+# {1, 2, 6, 12} at the flagship's widths (db's passes of PC permutations).
+BACKWARD_CASES = {
+    "ragged": CASES["ragged"],
+    "permutations": CASES["permutations"],
+    "flagship_nhop": CASES["flagship_nhop"],
+    "flagship_layer0": [
+        (19232, 28, 10, 1), (13640, 56, 20, 2), (8144, 84, 30, 6),
+        (7064, 112, 50, 12),
+    ],
+    "other_p": [(3000, 330, 30, 3), (2000, 440, 50, 7), (500, 220, 20, 24)],
+}
+
+
+def _backward_operands(case, seed=9):
+    """a and b as on the model's path (unit vectors along k, as
+    ``_unit_operands``), g standard normal and idx uniform in [0, P), on the
+    card: the backward is defined for any argmax, so the cases need no
+    forward."""
+    rng = np.random.default_rng(seed)
+    shapes = BACKWARD_CASES[case]
+    a, b = _unit_operands(rng, shapes)
+    g = [torch.from_numpy(rng.standard_normal((m, l))).float().cuda()
+         for m, _, l, _ in shapes]
+    idx = [torch.from_numpy(rng.integers(0, p, (m, l), dtype=np.int32))
+           .cuda() for m, _, l, p in shapes]
+    return a, b, g, idx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(BACKWARD_CASES))
+def test_cuda_backward_kernels_match_plain(case):
+    """The backward kernels against ``support_score_backward_plain`` on the
+    same CUDA tensors: max |diff| <= 1e-5 * max(1, max |plain|) for each
+    gradient. The kernels add each output's terms in their own fixed order
+    (da over l, db over m in ranges of rows), cuBLAS in another, hence the
+    tolerance; it is relative to the gradient's largest value, since both
+    sides round relative to their terms' size and an element whose terms
+    cancel keeps an error of that size (at the flagship's layer 0, db sums
+    19,232 rows: each side stands about 2e-5 from the fp64 sum, on values up
+    to about 100). On failure the message gives both sides' largest
+    distance from the plain version in fp64. Every group takes da; every
+    other group takes db, and one call counts one launch."""
+    _needs_card()
+    a, b, g, idx = _backward_operands(case)
+    need_a = [True] * len(a)
+    need_b = [i % 2 == 0 for i in range(len(a))]
+    before = ss.support_score_backward.launches
+    das, dbs = ss.support_score_backward(a, b, g, idx, need_a, need_b)
+    torch.cuda.synchronize()
+    assert ss.support_score_backward.launches == before + 1
+    for i in range(len(a)):
+        want = ss.support_score_backward_plain(
+            a[i], b[i], g[i], idx[i], need_a[i], need_b[i])
+        exact = ss.support_score_backward_plain(
+            a[i].double(), b[i].double(), g[i].double(), idx[i], need_a[i],
+            need_b[i])
+        for got, w, x in zip((das[i], dbs[i]), want, exact):
+            if w is None:
+                assert got is None
+                continue
+            assert got.shape == w.shape and got.dtype == torch.float32
+            assert torch.isfinite(got).all()
+            scale = max(1.0, w.abs().max().item())
+            ok = (got - w).abs().max().item() <= 1e-5 * scale
+            assert ok, (case, i, scale, (got - w).abs().max().item(),
+                        (got.double() - x).abs().max().item(),
+                        (w.double() - x).abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["flagship_nhop", "ragged"])
+def test_cuda_backward_repeats_bit_equal(case):
+    """Two calls of the backward kernels on the same inputs give the same
+    bits: no atomics, every sum in a fixed order."""
+    _needs_card()
+    a, b, g, idx = _backward_operands(case, seed=10)
+    runs = [ss.support_score_backward(a, b, g, idx) for _ in range(2)]
+    for x, y in zip(runs[0][0] + runs[0][1], runs[1][0] + runs[1][1]):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_cuda_backward_in_graph_capture_equals_eager():
+    """The backward captured in a CUDA graph and replayed equals the eager
+    call bit for bit, and again after the inputs are refilled: the kernels
+    take their sizes from the shapes and synchronise nothing with the
+    host. The capture counts its launch, as the Trainer's does."""
+    _needs_card()
+    static = _backward_operands("flagship_nhop", seed=11)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ss.support_score_backward(*static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = ss.support_score_backward.launches
+    with torch.cuda.graph(graph):
+        captured = ss.support_score_backward(*static)
+    assert ss.support_score_backward.launches == before + 1
+    for seed in (12, 13):
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = ss.support_score_backward(*static)
+        for x, y in zip(captured[0] + captured[1], eager[0] + eager[1]):
+            assert torch.equal(x, y)
+        for ts, new in zip(static, _backward_operands("flagship_nhop",
+                                                      seed=seed)):
+            for t, n in zip(ts, new):
+                t.copy_(n)
+
+
+@pytest.mark.cuda
+def test_cuda_backward_without_the_library_raises(monkeypatch):
+    """A CUDA tensor goes to the backward kernels or the call raises: with
+    their library unavailable nothing falls back to the plain version, and
+    nothing is counted."""
+    _needs_card()
+    from molkgnn_torch.ops import _build
+
+    built = _build.library
+
+    def missing(name):
+        if name == "support_score_bwd":
+            raise OSError(f"lib{name}.so: cannot open shared object file")
+        return built(name)
+
+    monkeypatch.setattr(_build, "library", missing)
+    ss._backward_scratch.cache_clear()
+    a, b, g, idx = _backward_operands("permutations")
+    before = ss.support_score_backward.launches
+    with pytest.raises(OSError):
+        ss.support_score_backward(a, b, g, idx)
+    ta = [x.clone().requires_grad_() for x in a]
+    outs = ss.grouped_support_score(ta, b)
+    with pytest.raises(OSError):
+        sum(best.sum() for best, _ in outs).backward()
+    assert ss.support_score_backward.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_fused_scorer_backward_goes_through_the_kernels():
+    """The fused scorer (G = 1, ``KernelConv(use_kernel=True)``) takes the
+    same backward op: one counted call, gradients of sum(best * g) within
+    1e-4 of autograd through the plain version (the upstream gradient zero
+    where the top two scores are within 1e-4)."""
+    _needs_card()
+    (a,), (b,) = _unit_operands(np.random.default_rng(14),
+                                [(7064, 112, 50, 12)])
+    sc = torch.einsum("mk,pkl->mlp", a.double(), b.double())
+    top2 = sc.topk(2, dim=2).values
+    g = torch.randn(sc.shape[:2], device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(1))
+    g = torch.where(top2[..., 0] - top2[..., 1] > 1e-4, g, 0.0)
+    ta, tb = a.clone().requires_grad_(), b.clone().requires_grad_()
+    before = ss.support_score_backward.launches
+    best, _ = ss.fused_support_score(ta, tb)
+    (best * g).sum().backward()
+    assert ss.support_score_backward.launches == before + 1
+    for got, want in zip((ta.grad, tb.grad), _plain_grads([a], [b], [g])):
+        assert (got - want).abs().max().item() <= 1e-4

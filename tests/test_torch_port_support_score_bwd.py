@@ -1,0 +1,251 @@
+"""Port parity: the permutation-max support scorer's backward.
+
+The port's backward goes through one registered op,
+``torch.ops.molkgnn.support_score_backward``; on the CPU its body is the
+plain version (``support_score_backward_plain``). It is held against
+``jax.vjp`` of the JAX package's Pallas scorers (interpret mode) in fp64,
+within 1e-10: the JAX backward asks its products for float32
+(``preferred_element_type``), so the JAX module runs here through a
+stand-in for its ``jnp`` whose float32 is float64, and the reference is
+float64 throughout. The operands are random normals with no near tie in
+the argmax (checked), so both sides pick the same permutations. The CUDA
+kernels are held against the plain version in
+``tests/test_torch_port_cuda.py``, which runs only where a card is present.
+"""
+
+import functools
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+
+from molkgnn_torch.ops import support_score as ss
+from molkgnn_tpu.ops import pallas_kernels as pk
+
+TOL = 1e-10
+
+# (M, K = d * F, L, P) of the flagship's four degree groups at F = 3.
+FLAGSHIP_NARROW = [(13, 3, 4, 1), (11, 6, 5, 2), (9, 9, 6, 6), (7, 12, 7, 12)]
+
+
+@pytest.fixture
+def jax64(monkeypatch):
+    """JAX in float64, with the Pallas module's float32 products in
+    float64 (see the module doc)."""
+    stand_in = types.SimpleNamespace(
+        **{k: getattr(jnp, k) for k in dir(jnp) if not k.startswith("__")})
+    stand_in.float32 = jnp.float64
+    monkeypatch.setattr(pk, "jnp", stand_in)
+    jax.config.update("jax_enable_x64", True)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_x64", False)
+
+
+def _assert_tie_free(a, b):
+    """At least 1e-6 between the top two scores of every (m, l), so that no
+    argmax rests on rounding."""
+    sc = np.einsum("mk,pkl->mlp", a, b)
+    if sc.shape[2] > 1:
+        top2 = -np.sort(-sc, axis=2)[..., :2]
+        assert (top2[..., 0] - top2[..., 1]).min() > 1e-6
+
+
+def _operands(rng, shapes):
+    """fp64 a [M, K] and b [P, K, L], tie-free."""
+    a = [rng.standard_normal((m, k)) for m, k, _, _ in shapes]
+    b = [rng.standard_normal((p, k, l)) for _, k, l, p in shapes]
+    for x, y in zip(a, b):
+        _assert_tie_free(x, y)
+    return a, b
+
+
+def _port_grads(a_np, b_np, g_np, a_of, b_grad):
+    """Gradients of sum_i <best_i, g_i> through the port's grouped scorer
+    (its Function, whose backward is the registered op). ``a_of[i]``: the
+    distinct a that group i scores; ``b_grad[i]``: whether b_i takes a
+    gradient. Returns (da per distinct a, db per group or None, argmaxes)."""
+    ta = [torch.from_numpy(x).requires_grad_() for x in a_np]
+    tb = [torch.from_numpy(y).requires_grad_(bool(w))
+          for y, w in zip(b_np, b_grad)]
+    outs = ss.grouped_support_score([ta[i] for i in a_of], tb)
+    loss = sum((best * torch.from_numpy(g)).sum()
+               for (best, _), g in zip(outs, g_np))
+    loss.backward()
+    return ([t.grad.numpy() for t in ta],
+            [t.grad.numpy() if t.requires_grad else None for t in tb],
+            [idx.numpy() for _, idx in outs])
+
+
+@functools.partial(jax.jit, static_argnums=3)
+def _jax_vjp(a_list, b_list, g_list, a_of):
+    """(da per distinct a, db per group, argmaxes) by jax.vjp of the JAX
+    package's grouped scorer; jitted, which compiles the interpreted
+    kernel and its VJP once (eager dispatch compiles each op alone)."""
+
+    def bests(a_list, b_list):
+        outs = pk.grouped_support_score(
+            [a_list[i] for i in a_of], b_list, interpret=True)
+        return [best for best, _ in outs], [idx for _, idx in outs]
+
+    out, vjp, idxs = jax.vjp(bests, a_list, b_list, has_aux=True)
+    return (*vjp(g_list), idxs, [x.dtype == jnp.float64 for x in out])
+
+
+def _jax_grads(a_np, b_np, g_np, a_of):
+    """The same through jax.vjp of the JAX package's grouped scorer."""
+    da, db, idxs, fp64 = _jax_vjp([jnp.asarray(x) for x in a_np],
+                                  [jnp.asarray(y) for y in b_np],
+                                  [jnp.asarray(g) for g in g_np], tuple(a_of))
+    assert all(fp64)
+    return ([np.asarray(x) for x in da], [np.asarray(y) for y in db],
+            [np.asarray(i) for i in idxs])
+
+
+def _assert_close(got, want):
+    assert got.shape == want.shape and got.dtype == np.float64
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
+
+
+def _compare(rng, a_np, b_np, a_of, b_grad):
+    """Port against JAX on one grouped call: argmaxes equal, every a's and
+    every trainable b's gradient within TOL."""
+    g_np = [rng.standard_normal((a_np[i].shape[0], y.shape[2]))
+            for i, y in zip(a_of, b_np)]
+    got_a, got_b, got_idx = _port_grads(a_np, b_np, g_np, a_of, b_grad)
+    want_a, want_b, want_idx = _jax_grads(a_np, b_np, g_np, a_of)
+    for got, want in zip(got_idx, want_idx):
+        np.testing.assert_array_equal(got, want)
+    for got, want in zip(got_a, want_a):
+        _assert_close(got, want)
+    for got, want, w in zip(got_b, want_b, b_grad):
+        if w:
+            _assert_close(got, want)
+        else:
+            assert got is None
+
+
+def test_flagship_groups_match_jax_vjp(jax64):
+    """Four flagship-like degree groups in one grouped call."""
+    rng = np.random.default_rng(0)
+    a_np, b_np = _operands(rng, FLAGSHIP_NARROW)
+    _compare(rng, a_np, b_np, [0, 1, 2, 3], [True] * 4)
+
+
+def test_fixed_set_layout_matches_jax_vjp(jax64):
+    """A fixed-set layer 0: each degree's fixed and trainable sets (8
+    groups) share the degree's a; the fixed sets' b take no gradient, and
+    each a's gradient is the sum over its two groups."""
+    rng = np.random.default_rng(1)
+    a_np = [rng.standard_normal((m, k)) for m, k, _, _ in FLAGSHIP_NARROW]
+    b_np = [rng.standard_normal((p, k, l))
+            for _, k, l0, p in FLAGSHIP_NARROW for l in (l0 - 2, l0)]
+    a_of = [i // 2 for i in range(8)]
+    for i, y in zip(a_of, b_np):
+        _assert_tie_free(a_np[i], y)
+    _compare(rng, a_np, b_np, a_of, [i % 2 == 1 for i in range(8)])
+
+
+def test_b_without_gradient_matches_jax_vjp(jax64):
+    """Only the a's take a gradient; the op is asked for no db."""
+    rng = np.random.default_rng(2)
+    a_np, b_np = _operands(rng, FLAGSHIP_NARROW)
+    _compare(rng, a_np, b_np, [0, 1, 2, 3], [False] * 4)
+
+
+def test_single_group_matches_jax_fused_vjp(jax64):
+    """G = 1, the fused scorer, against jax.vjp of the JAX fused scorer."""
+    rng = np.random.default_rng(3)
+    (a,), (b,) = _operands(rng, [(10, 24, 6, 12)])
+    g = rng.standard_normal((10, 6))
+    ta = torch.from_numpy(a).requires_grad_()
+    tb = torch.from_numpy(b).requires_grad_()
+    best, _ = ss.fused_support_score(ta, tb)
+    (best * torch.from_numpy(g)).sum().backward()
+
+    @jax.jit
+    def jax_vjp(x, y, g):
+        (best, _), vjp = jax.vjp(
+            lambda x, y: pk.fused_support_score(x, y, interpret=True), x, y)
+        return best.dtype == jnp.float64, *vjp(
+            (g, np.zeros(g.shape, jax.dtypes.float0)))
+
+    fp64, da, db = jax_vjp(jnp.asarray(a), jnp.asarray(b), jnp.asarray(g))
+    assert fp64
+    _assert_close(ta.grad.numpy(), np.asarray(da))
+    _assert_close(tb.grad.numpy(), np.asarray(db))
+
+
+def test_registered_op_matches_plain_version():
+    """The op's CPU body, called directly, lays each group's plain da and
+    db back to back at ``backward_offsets``, and leaves out what is not
+    needed."""
+    rng = np.random.default_rng(4)
+    a_np, b_np = _operands(rng, FLAGSHIP_NARROW)
+    a = [torch.from_numpy(x) for x in a_np]
+    b = [torch.from_numpy(y) for y in b_np]
+    g = [torch.from_numpy(rng.standard_normal((m, l)))
+         for m, _, l, _ in FLAGSHIP_NARROW]
+    idx = [ss.support_score_plain(x, y)[1] for x, y in zip(a, b)]
+    need_a, need_b = [True, False, True, True], [True, True, False, True]
+    da, db = torch.ops.molkgnn.support_score_backward(a, b, g, idx, need_a,
+                                                      need_b)
+    da_off, n_da, db_off, n_db = ss.backward_offsets(FLAGSHIP_NARROW, need_a,
+                                                     need_b)
+    assert da.shape == (n_da,) and db.shape == (n_db,)
+    for i, (m, k, l, p) in enumerate(FLAGSHIP_NARROW):
+        want_a, want_b = ss.support_score_backward_plain(
+            a[i], b[i], g[i], idx[i], need_a[i], need_b[i])
+        if need_a[i]:
+            assert torch.equal(da[da_off[i]:da_off[i] + m * k].view(m, k),
+                               want_a)
+        if need_b[i]:
+            assert torch.equal(
+                db[db_off[i]:db_off[i] + p * k * l].view(p, k, l), want_b)
+
+
+@pytest.mark.parametrize(
+    "need_a,need_b,want",
+    [
+        ([True, True], [True, True], ([0, 6], 14, [0, 24], 48)),
+        ([False, True], [True, False], ([0, 0], 8, [0, 24], 24)),
+        ([True, False], [False, False], ([0, 6], 6, [0, 0], 0)),
+    ],
+)
+def test_backward_offsets(need_a, need_b, want):
+    """Groups (M, K, L, P) = (3, 2, 4, 3) and (4, 2, 3, 4): a gradient that
+    is not needed takes no room in its flat buffer."""
+    assert ss.backward_offsets([(3, 2, 4, 3), (4, 2, 3, 4)], need_a,
+                               need_b) == want
+
+
+def test_cpu_tensors_never_launch_the_backward():
+    before = ss.support_score_backward.launches
+    a = torch.randn(5, 6, requires_grad=True)
+    b = torch.randn(2, 6, 3, requires_grad=True)
+    (best, _), = ss.grouped_support_score([a], [b])
+    best.sum().backward()
+    best, _ = ss.fused_support_score(a, b)
+    best.sum().backward()
+    assert a.grad is not None and b.grad is not None
+    assert ss.support_score_backward.launches == before
+
+
+def test_backward_fake_gives_the_shapes():
+    """Under fake tensors (``torch.export``, the compiler's tracing) the op
+    returns flat buffers of the lengths ``backward_offsets`` gives."""
+    with FakeTensorMode():
+        a = [torch.empty(7, 12), torch.empty(5, 6)]
+        b = [torch.empty(12, 12, 7), torch.empty(2, 6, 5)]
+        g = [torch.empty(7, 7), torch.empty(5, 5)]
+        idx = [torch.empty(7, 7, dtype=torch.int32),
+               torch.empty(5, 5, dtype=torch.int32)]
+        da, db = torch.ops.molkgnn.support_score_backward(
+            a, b, g, idx, [True, False], [True, True])
+        assert da.shape == (7 * 12,) and db.shape == (12 * 12 * 7 + 60,)
+        assert da.dtype == db.dtype == torch.float32
