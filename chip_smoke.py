@@ -11,7 +11,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
   2. build:   compile every CUDA source of molkgnn_torch/csrc with nvcc;
               print the scorer's registers, shared memory, spills and
               resident blocks per SM for each of its tile shapes, and the
-              same for its backward's three kernels.
+              same for its backward's four kernels.
   3. kernels: hold the support-score kernel against its plain PyTorch
               version at the flagship serving shapes (buckets of 8192
               synthetic molecules at batch 1024: all degrees in one grouped
@@ -42,8 +42,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
               on the same tensors, max |diff| <= 1e-5 * max(1, max |plain|)
               for each gradient;
               the backward's time by events and its kernels' device time
-              (profiler) per layer and a train step, beside its byte bound
-              and the dense route's; the memory a forward leaves behind.
+              (profiler) per layer and a train step, beside its byte bound,
+              the TF32 work its tensor-core kernels issue (and its time at
+              495 TFLOP/s) and the dense route's; the memory a forward
+              leaves behind.
               (b) 3 optimizer steps of the flagship with use_kernel=True
               and False from the same weights, batch 256 of tie-free
               molecules, dropout 0: losses within 1e-4 relative. (c) The
@@ -326,8 +328,8 @@ BACKWARD_SOURCE = "molkgnn_torch/csrc/support_score_bwd.cu"
 BACKWARD_REPLACES = ("molkgnn_tpu/ops/pallas_kernels.py:251 (_grouped_bwd, "
                      "the backward of _grouped_vjp; _fss_bwd at :76 is the "
                      "same at G = 1)")
-# Substring of the backward's three __global__ functions (da, db's partial
-# sums, their sum), as the profiler names them.
+# Substring of the backward's four __global__ functions (b packed for da,
+# da, db's partial sums, their sum), as the profiler names them.
 BACKWARD_NAME = "score_grad_"
 SEGMENT_SOURCE = "molkgnn_torch/csrc/segment_sum.cu"
 PLAN_SOURCE = "molkgnn_torch/csrc/segment_plan.cu"
@@ -964,13 +966,14 @@ class Smoke:
         forward leaves allocated once its outputs are dropped."""
         from molkgnn_torch.ops import support_score as ss
         from molkgnn_torch.ops.permutations import num_perms
-        from molkgnn_torch.tools.backward_profile import bound
+        from molkgnn_torch.tools.backward_profile import bound, tf32_work
 
         torch = self.torch
         gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
         caps = spec.deg_capacity
         nhop_f = sum(FLAGSHIP_KERNELS)
         self.backward_ms = {}
+        tf32 = {}
         for layer, f in (("layer 0", 28), ("N-hop layer", nhop_f)):
             dims = [(caps[d - 1], d, f, FLAGSHIP_KERNELS[d - 1])
                     for d in range(1, 5)]
@@ -1061,6 +1064,10 @@ class Smoke:
                    "plain_device_ms": device_ms(torch, dense, name=None),
                    "bound_ms": bound(shapes)["ms"],
                    "max_abs_err": err, "max_rel_err": worst}
+            # The TF32 work goes to the log only: it is counted from the
+            # tiles, not measured, so the kernel record leaves it out.
+            work = tf32_work(shapes, device_ms=rec["device_ms"])
+            tf32[layer] = work
             self.backward_ms[layer] = rec
             log(f"    backward (the kernels): {rec['ms']:.4f} ms by events "
                 f"({fmt_ms(rec['device_ms'])} of device time), bound "
@@ -1068,11 +1075,19 @@ class Smoke:
                 f"(a scatter and two products a group) {rec['plain_ms']:.4f}"
                 f" ms by events ({fmt_ms(rec['plain_device_ms'])} of device "
                 f"time)")
+            log(f"    issued TF32 work (one-hot products at the kernels' "
+                f"tiles, 3xTF32): {work['flops'] / 1e9:.3f} GFLOP, "
+                f"{work['ms']:.4f} ms at 495 TFLOP/s"
+                + (f", {work['share']:.3f} of the kernels' device time"
+                   if work["share"] else ""))
 
         def step(key):
             parts = [self.backward_ms["layer 0"][key]] + 3 * [
                 self.backward_ms["N-hop layer"][key]]
             return total(parts)
+
+        def step_tf32(key):
+            return tf32["layer 0"][key] + 3 * tf32["N-hop layer"][key]
 
         self.backward_step = {key: step(key) for key in (
             "ms", "device_ms", "device_all_ms", "plain_ms", "plain_device_ms",
@@ -1087,7 +1102,9 @@ class Smoke:
             f"every kernel of the call), bound "
             f"{self.backward_step['bound_ms']:.4f} ms; dense plain "
             f"route {self.backward_step['plain_ms']:.4f} ms by events, "
-            f"{fmt_ms(self.backward_step['plain_device_ms'])} of device time")
+            f"{fmt_ms(self.backward_step['plain_device_ms'])} of device time;"
+            f" issued TF32 work {step_tf32('flops') / 1e9:.3f} GFLOP, "
+            f"{step_tf32('ms'):.4f} ms at 495 TFLOP/s")
 
     def kernel_vs_plain_training(self):
         """3 optimizer steps with the kernel and with the plain products

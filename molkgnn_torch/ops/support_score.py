@@ -44,11 +44,15 @@ the chosen permutation,
 for the groups and inputs that need it (``needs_input_grad``), through one
 more registered op, ``torch.ops.molkgnn.support_score_backward``:
 
-  * CUDA: the kernels of ``csrc/support_score_bwd.cu`` (da; db's partial
-    sums over fixed ranges of rows, then their sum in range order), one
-    call for all the groups, counted in ``support_score_backward.launches``.
-    No atomics and no host sync: a call repeats bit for bit and a CUDA
-    graph captures it;
+  * CUDA: the kernels of ``csrc/support_score_bwd.cu``, one call for all
+    the groups, counted in ``support_score_backward.launches``: both
+    gradients as dense products with the one-hot matrix
+    S[m, p * L + l] = g[m, l] [idx[m, l] == p] on the tensor cores, in
+    3xTF32 (every fp32 operand split into TF32 hi and lo parts, three
+    products; ``support_score_backward_3xtf32`` emulates the arithmetic):
+    b packed for da, da, db's partial sums over fixed ranges of rows, then
+    their sum in a fixed order. No atomics and no host sync: a call repeats
+    bit for bit and a CUDA graph captures it;
   * CPU: the plain version, ``support_score_backward_plain`` (the output
     gradient scattered to the chosen permutation of a zero [M, P, L]
     tensor, then two products), uncounted;
@@ -102,6 +106,56 @@ def support_score_backward_plain(a: torch.Tensor, b: torch.Tensor,
         1, idx.long().unsqueeze(1), g.unsqueeze(1))
     da = torch.einsum("mpl,pkl->mk", gp, b) if need_a else None
     db = torch.einsum("mk,mpl->pkl", a, gp) if need_b else None
+    return da, db
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` rounded to TF32 (10 stored mantissa bits) to nearest,
+    ties away from zero, as ``cvt.rna.tf32.f32``: an fp32 tensor whose 13
+    low mantissa bits are 0 (finite values; the sign is left alone, so the
+    magnitude rounds)."""
+    bits = x.to(torch.float32).view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """(hi, lo) = (tf32(x), tf32(x - hi)): x = hi + lo up to about 2^-22
+    of |x|, the split of ``split_tf32`` in csrc/support_score_bwd.cu."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.to(torch.float32) - hi)
+
+
+def support_score_backward_3xtf32(a: torch.Tensor, b: torch.Tensor,
+                                  g: torch.Tensor, idx: torch.Tensor,
+                                  need_a: bool = True, need_b: bool = True,
+                                  terms: int = 3):
+    """The arithmetic of the CUDA backward kernels for one group, emulated
+    in plain PyTorch (a check of the split; nothing on a model path calls
+    it). The one-hot S [M, P, L] (g at the chosen permutation), a and b
+    are split into TF32 hi and lo parts (``split_tf32``), and each gradient
+    is lo*hi + hi*lo + hi*hi of the dense products, each product exact in
+    fp32 and summed in fp32 by its own einsum. The kernels add the three
+    into one accumulator a step of 8 terms, and the tensor cores round each
+    such addition toward zero, which this does not model: on the card the
+    error grows with the length of the chain (tools/backward_accuracy.py).
+    ``terms=1`` keeps hi*hi alone: plain TF32. Returns
+    (da [M, K] or None, db [P, K, L] or None) in fp32."""
+    if terms not in (1, 3):
+        raise ValueError(f"terms is 1 or 3, got {terms}")
+    a, b, g = (t.to(torch.float32) for t in (a, b, g))
+    s = g.new_zeros(idx.shape[0], b.shape[0], idx.shape[1]).scatter_(
+        1, idx.long().unsqueeze(1), g.unsqueeze(1))
+
+    def product(eq, x, y):
+        (x_hi, x_lo), (y_hi, y_lo) = split_tf32(x), split_tf32(y)
+        out = torch.einsum(eq, x_hi, y_hi)
+        if terms == 3:
+            out = (torch.einsum(eq, x_lo, y_hi) + torch.einsum(eq, x_hi, y_lo)
+                   + out)
+        return out
+
+    da = product("mpl,pkl->mk", s, b) if need_a else None
+    db = product("mk,mpl->pkl", a, s) if need_b else None
     return da, db
 
 
@@ -325,9 +379,9 @@ def _raise_on_backward(lib, err: int, what: str) -> None:
 
 @functools.lru_cache(maxsize=256)
 def _backward_scratch(shapes: tuple, need_a: tuple, need_b: tuple) -> int:
-    """Floats of scratch (db's partial sums) for groups of these
-    (M, K, L, P) and needs, in launch order; asked of the library, which
-    lays the partial sums out."""
+    """Floats of scratch (the packed b and db's partial sums) for groups
+    of these (M, K, L, P) and needs, in launch order; asked of the library,
+    which lays them out."""
     lib = _bwd_lib()
     args = [v for shape, want_a, want_b in zip(shapes, need_a, need_b)
             for v in (0, 0, 0, 0, int(want_a), int(want_b), *shape)]
@@ -358,9 +412,9 @@ def _check_backward(a, b, g, idx) -> None:
 
 def _backward_launch(a_list, b_list, g_list, idx_list, need_a, need_b):
     """One call of the backward kernels over all groups; returns the flat
-    (da, db) buffers at ``backward_offsets``. db's partial sums go to a
-    scratch buffer of their own, released (stream-ordered) when the call
-    returns."""
+    (da, db) buffers at ``backward_offsets``. The packed b (for da) and
+    db's partial sums go to a scratch buffer of their own, released
+    (stream-ordered) when the call returns."""
     n = len(a_list)
     if not 1 <= n <= MAX_GROUPS:
         raise ValueError(
@@ -475,7 +529,7 @@ support_score_backward.launches = 0
 
 BACKWARD_FACT_NAMES = ("registers", "static_smem_bytes", "local_bytes",
                        "blocks_per_sm")
-BACKWARD_KERNELS = ("da", "db", "db_sum")
+BACKWARD_KERNELS = ("pack", "da", "db", "db_sum")
 
 
 def backward_facts() -> dict:

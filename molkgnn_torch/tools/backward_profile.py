@@ -12,7 +12,12 @@ Three measurements, in one process, fp32, TF32 off:
      written once, over 3.35 TB/s). Where the package has the dense plain
      route as a function of its own (``support_score_backward_plain``: a
      scatter to [M, P, L] and two products a group), it is timed on the
-     same tensors beside it.
+     same tensors beside it. Where the package's kernels run on the tensor
+     cores (it has ``support_score_backward_3xtf32``), the TF32 operations
+     they issue (``tf32_work``), that work's time at 495 TFLOP/s and its
+     share of the kernels' device time. Then each degree group of the
+     layer alone (G = 1), da alone and db alone, device ms a call by
+     replaying a CUDA graph of 10 captured calls (``graph_ms``).
   2. Two eager flagship train steps (batch 1024, device sampling) profiled,
      with every call of ``_SupportScore.backward`` inside a
      ``torch.profiler.record_function`` range that this tool adds for the
@@ -23,8 +28,9 @@ Three measurements, in one process, fp32, TF32 off:
 
 Prints the card's name and power limit, a readable summary, and one JSON
 line. It uses only names that the port had before its backward kernels
-(and the plain dense route where the package has it), so another
-checkout's package is profiled by the same file:
+(and the backward op, its plain dense route and its 3xTF32 emulation
+where the package has them), so another checkout's package is profiled
+by the same file:
 
     python3 -m molkgnn_torch.tools.backward_profile
     PYTHONPATH=<checkout> python3 <this file>
@@ -49,6 +55,7 @@ CAPACITIES = (19232, 13640, 8144, 7064)  # rows for degrees 1-4
 KERNELS = (10, 20, 30, 50)
 HBM_RATE = 3.35e12  # bytes/s, H100 SXM
 FP32_PEAK = 67e12  # FLOP/s, fp32 outside the tensor cores
+TF32_PEAK = 495e12  # FLOP/s, dense TF32 on the tensor cores
 RANGE = "molkgnn::support_score_backward_range"
 BATCH = 1024
 
@@ -63,6 +70,78 @@ def bound(shapes) -> dict:
     t_bytes, t_ops = nbytes / HBM_RATE * 1e3, flops / FP32_PEAK * 1e3
     return {"bytes": nbytes, "flops": flops, "ms": max(t_bytes, t_ops),
             "by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _ceil_to(x: int, step: int) -> int:
+    return -(-x // step) * step
+
+
+def tf32_work(shapes, need_a=None, need_b=None, device_ms=None) -> dict:
+    """The TF32 tensor-core operations (2 a multiply-add) that the backward
+    kernels of csrc/support_score_bwd.cu issue for groups of these
+    (M, K, L, P), each taking da and db where needed (default: both): the
+    dense one-hot products at the kernels' tiles, three times over for the
+    3xTF32 split. da: 64-row warpgroup tiles (a tile's rows past M still
+    issue), K in chunks of 32, N = P * L in stages of 16. db: 64-column
+    warpgroup tiles of K (a tile wholly past K issues nothing), N in chunks
+    of 32, M in chunks of 32.
+    The one formula of this tool and of chip_smoke.py's phase 5; the tiles
+    are the source's (kDaRows, kChunk, kDaSteps, kDbK, kDbRows), copied.
+    Returns the operations, their time at 495 TFLOP/s and, given the
+    kernels' device ms, that time's share of it (the tensor cores' share of
+    their peak)."""
+    need_a = [True] * len(shapes) if need_a is None else need_a
+    need_b = [True] * len(shapes) if need_b is None else need_b
+    fma = 0
+    for (m, k, l, p), want_a, want_b in zip(shapes, need_a, need_b):
+        n = p * l
+        if want_a and m and k:
+            fma += _ceil_to(m, 64) * _ceil_to(k, 32) * _ceil_to(n, 16)
+        if want_b and m and k and n:
+            fma += _ceil_to(k, 64) * _ceil_to(n, 32) * _ceil_to(m, 32)
+    flops = 2 * 3 * fma
+    ms = flops / TF32_PEAK * 1e3
+    return {"flops": flops, "ms": ms,
+            "share": ms / device_ms if device_ms else None}
+
+
+def graph_ms(fn, calls=10, replays=5) -> float:
+    """Device ms a call of ``fn``: ``calls`` calls captured in a CUDA graph
+    (after two on a side stream), replayed ``replays`` times by events
+    (events around eager calls would time the host)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (calls * replays)
+
+
+def group_times(a_list, b_list, g_list, idx_list) -> list:
+    """[{shape, da_ms, db_ms}] of each group alone: the backward op with
+    only da, then only db wanted, by ``graph_ms``."""
+    out = []
+    for a, b, g, idx in zip(a_list, b_list, g_list, idx_list):
+        rec = {"shape": (a.shape[0], a.shape[1], b.shape[2], b.shape[0])}
+        for what, need_a, need_b in (("da", True, False),
+                                     ("db", False, True)):
+            rec[f"{what}_ms"] = graph_ms(lambda: ss.support_score_backward(
+                [a], [b], [g], [idx], [need_a], [need_b]))
+        out.append(rec)
+    return out
 
 
 def layer_operands(f, gen):
@@ -98,11 +177,15 @@ def backward_alone() -> dict:
                "kernels": sorted(profiled_kernels(backward), reverse=True),
                "bound": bound(shapes)}
         rec["device_ms"] = sum(ms for ms, _ in rec["kernels"])
+        rec["tf32"] = (tf32_work(shapes, device_ms=rec["device_ms"])
+                       if hasattr(ss, "support_score_backward_3xtf32")
+                       else None)
+        args = ([x.detach() for x in ta], [x.detach() for x in tb], grads,
+                [x.detach() for x in flat[4:]])
+        if hasattr(ss, "support_score_backward"):
+            rec["groups"] = group_times(*args)
         plain = getattr(ss, "support_score_backward_plain", None)
         if plain is not None:
-            idxs = [x.detach() for x in flat[4:]]
-            args = ([x.detach() for x in ta], [x.detach() for x in tb],
-                    grads, idxs)
 
             def dense():
                 return [plain(a, b, g, i, True, True)
@@ -230,8 +313,15 @@ def main() -> None:
               f"{rec['bound']['ms']:.4f} ms ({rec['bound']['by']}); dense "
               f"plain route {rec.get('plain_event_ms')} ms by events, "
               f"{rec.get('plain_device_ms')} ms of device time")
+        if rec["tf32"] is not None:
+            print(f"    issued TF32 work {rec['tf32']['flops'] / 1e9:.3f} "
+                  f"GFLOP, {rec['tf32']['ms']:.4f} ms at 495 TFLOP/s: "
+                  f"{rec['tf32']['share']:.3f} of the kernels' device time")
         for ms, key in rec["kernels"][:8]:
             print(f"    {ms:8.4f} ms  {key[:100]}")
+        for grp in rec.get("groups", []):
+            print(f"    alone {grp['shape']}: da {grp['da_ms']:.4f} ms, db "
+                  f"{grp['db_ms']:.4f} ms by graph replay")
     step = out["eager_step"]
     print(f"eager step: device {step['step_device_ms']:.3f} ms, the "
           f"scorer's backward {step['backward_device_ms']:.4f} ms a step "

@@ -1446,6 +1446,15 @@ BACKWARD_CASES = {
         (7064, 112, 50, 12),
     ],
     "other_p": [(3000, 330, 30, 3), (2000, 440, 50, 7), (500, 220, 20, 24)],
+    # The tensor-core kernels' edges: P * L not a multiple of 8 (N = 180,
+    # 21, 5), M not a multiple of 64 (a ragged last row tile, a warpgroup
+    # with no row), K below one 32-column chunk (layer 0's 28, and 5).
+    "pl_not_multiple_of_8": [(3000, 330, 30, 6), (300, 21, 7, 3),
+                             (77, 9, 5, 1)],
+    "m_not_multiple_of_64": [(1, 110, 10, 1), (65, 220, 20, 2),
+                             (129, 330, 30, 6), (191, 440, 50, 12)],
+    "k_below_one_tile": [(2000, 28, 10, 1), (1500, 28, 50, 12),
+                         (300, 5, 20, 2)],
 }
 
 
@@ -1503,6 +1512,113 @@ def test_cuda_backward_kernels_match_plain(case):
             assert ok, (case, i, scale, (got - w).abs().max().item(),
                         (got.double() - x).abs().max().item(),
                         (w.double() - x).abs().max().item())
+
+
+# The longest chain of tensor-core accumulations into one sum: da adds
+# 3 products a step of 8 columns n' over its padded P * L (steps in pairs);
+# db adds 3 a step of 8 rows over a range of at most 32 c P rows, c being
+# kDbRangeChunks of csrc/support_score_bwd.cu.
+DB_RANGE_CHUNKS = 4
+
+
+def _chain(shape, what):
+    _, _, l, p = shape
+    if what == "da":
+        steps = -(-p * l // 8)
+        return 3 * (steps + steps % 2)
+    return 3 * 32 * DB_RANGE_CHUNKS * p // 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["flagship_layer0", "flagship_nhop"])
+def test_cuda_backward_kernels_as_accurate_as_fp32(case):
+    """The flagship's grouped calls as a train step makes them (layer 0's
+    19,232-row P = 1 group, the N-hop layer's degree-4 group at K = 440,
+    L = 50, P = 12, and the two between), held against x64, the plain
+    route in fp64 on the same operands. For each group and gradient the
+    kernels' max |x - x64| is at most twice the plain route's in fp32
+    (cuBLAS, TF32 off) plus one fp32 ulp of max |x64| (2^-23 of it) for each
+    tensor-core accumulation in the longest chain of one sum (``_chain``):
+    the tensor cores round each accumulation toward zero, so the error
+    grows with the chain, and the 3xTF32 split adds little to fp32's own.
+    Plain TF32 (hi*hi alone, ``support_score_backward_3xtf32`` with one
+    term) lies outside that bound.
+    """
+    _needs_card()
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        a, b, g, idx = _backward_operands(case, seed=17)
+        n = len(a)
+        das, dbs = ss.support_score_backward(a, b, g, idx, [True] * n,
+                                             [True] * n)
+        for i in range(n):
+            shape = tuple(BACKWARD_CASES[case][i])
+            plain = ss.support_score_backward_plain(a[i], b[i], g[i], idx[i])
+            tf32 = ss.support_score_backward_3xtf32(a[i], b[i], g[i], idx[i],
+                                                    terms=1)
+            exact = ss.support_score_backward_plain(
+                a[i].double(), b[i].double(), g[i].double(), idx[i])
+            for what, got, w, w32, x in zip(("da", "db"), (das[i], dbs[i]),
+                                            plain, tf32, exact):
+                def err(y):
+                    return (y.double() - x).abs().max().item()
+
+                limit = (2 * err(w) + _chain(shape, what) * 2.0 ** -23
+                         * x.abs().max().item())
+                assert err(got) <= limit, (case, i, what, err(got), err(w),
+                                           limit)
+                assert err(w32) > limit, (case, i, what, err(w32), limit)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["flagship_nhop", "flagship_layer0",
+                                  "ragged"])
+def test_cuda_backward_kernels_one_gradient_a_group(case):
+    """Groups that take only da, only db, or both, in one call (fixed
+    kernel sets' b take no gradient): each gradient within 1e-5 * max(1,
+    max |plain|) of ``support_score_backward_plain``, the others None."""
+    _needs_card()
+    a, b, g, idx = _backward_operands(case, seed=15)
+    need_a = [i % 3 != 0 for i in range(len(a))]
+    need_b = [i % 3 != 1 for i in range(len(a))]
+    before = ss.support_score_backward.launches
+    das, dbs = ss.support_score_backward(a, b, g, idx, need_a, need_b)
+    torch.cuda.synchronize()
+    assert ss.support_score_backward.launches == before + 1
+    for i in range(len(a)):
+        want = ss.support_score_backward_plain(
+            a[i], b[i], g[i], idx[i], need_a[i], need_b[i])
+        for got, w in zip((das[i], dbs[i]), want):
+            if w is None:
+                assert got is None
+                continue
+            scale = max(1.0, w.abs().max().item())
+            assert (got - w).abs().max().item() <= 1e-5 * scale, (case, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(19232, 28, 10, 1), (13640, 56, 20, 2),
+                                   (8144, 330, 30, 6), (100, 440, 50, 12)])
+def test_cuda_fused_backward_matches_plain(shape):
+    """G = 1 through ``fused_support_score``: its backward (one counted
+    call of the kernels) against ``support_score_backward_plain`` on the
+    forward's own argmaxes, within 1e-5 * max(1, max |plain|) each."""
+    _needs_card()
+    (a,), (b,) = _unit_operands(np.random.default_rng(16), [shape])
+    g = torch.randn(shape[0], shape[2], device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(2))
+    ta, tb = a.clone().requires_grad_(), b.clone().requires_grad_()
+    best, idx = ss.fused_support_score(ta, tb)
+    before = ss.support_score_backward.launches
+    (best * g).sum().backward()
+    assert ss.support_score_backward.launches == before + 1
+    for got, w in zip((ta.grad, tb.grad),
+                      ss.support_score_backward_plain(a, b, g, idx)):
+        scale = max(1.0, w.abs().max().item())
+        assert (got - w).abs().max().item() <= 1e-5 * scale
 
 
 @pytest.mark.cuda

@@ -24,6 +24,7 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from molkgnn_torch.ops import support_score as ss
+from molkgnn_torch.tools.backward_profile import tf32_work
 from molkgnn_tpu.ops import pallas_kernels as pk
 
 TOL = 1e-10
@@ -249,3 +250,126 @@ def test_backward_fake_gives_the_shapes():
             a, b, g, idx, [True, False], [True, True])
         assert da.shape == (7 * 12,) and db.shape == (12 * 12 * 7 + 60,)
         assert da.dtype == db.dtype == torch.float32
+
+
+# The CUDA kernels' arithmetic (3xTF32), emulated on the CPU by
+# ``support_score_backward_3xtf32``; the card tests' limit for each
+# gradient is 1e-5 * max(1, max |reference|).
+CARD_LIMIT = 1e-5
+
+
+def _card_error(got, want):
+    """Largest difference over 1e-5 * max(1, max |want|)."""
+    want = np.asarray(want, dtype=np.float64)
+    scale = max(1.0, np.abs(want).max())
+    return np.abs(np.asarray(got, dtype=np.float64) - want).max() / scale
+
+
+@pytest.mark.parametrize(
+    "x,want",
+    [
+        (1.0, 1.0),
+        (1 + 2**-11, 1 + 2**-10),  # a tie: away from zero
+        (-(1 + 2**-11), -(1 + 2**-10)),
+        (1 + 2**-12, 1.0),
+        (1 + 3 * 2**-12, 1 + 2**-10),
+        (1 + 2**-10 + 2**-11, 1 + 2**-9),  # a tie on an odd last bit
+        (0.0, 0.0),
+    ],
+)
+def test_tf32_round_is_nearest_ties_away(x, want):
+    """``tf32_round`` keeps 10 mantissa bits, to nearest, ties away from
+    zero (``cvt.rna.tf32.f32``)."""
+    got = ss.tf32_round(torch.tensor([x], dtype=torch.float32))
+    assert got.item() == want
+
+
+def test_split_tf32_parts():
+    """hi and lo are TF32 values (13 low bits 0) and hi + lo stands within
+    2^-21 of x."""
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(4096)
+                         ).float()
+    hi, lo = ss.split_tf32(x)
+    for part in (hi, lo):
+        assert (part.view(torch.int32) & 0x1FFF).eq(0).all()
+    err = (hi.double() + lo.double() - x.double()).abs()
+    assert (err <= 2.0**-21 * x.double().abs()).all()
+
+
+def test_3xtf32_matches_jax_vjp_on_flagship_groups(jax64):
+    """On the narrow flagship groups the kernels' arithmetic (fp32 operands
+    split into TF32 parts, three products) stands within the card tests'
+    limit of the fp64 ``jax.vjp`` of the JAX grouped scorer, each
+    gradient."""
+    rng = np.random.default_rng(6)
+    a_np, b_np = _operands(rng, FLAGSHIP_NARROW)
+    g_np = [rng.standard_normal((x.shape[0], y.shape[2]))
+            for x, y in zip(a_np, b_np)]
+    want_a, want_b, idxs = _jax_grads(a_np, b_np, g_np, [0, 1, 2, 3])
+    for i in range(len(FLAGSHIP_NARROW)):
+        da, db = ss.support_score_backward_3xtf32(
+            torch.from_numpy(a_np[i]), torch.from_numpy(b_np[i]),
+            torch.from_numpy(g_np[i]), torch.from_numpy(np.array(idxs[i])))
+        assert da.dtype == db.dtype == torch.float32
+        assert _card_error(da.numpy(), want_a[i]) <= CARD_LIMIT
+        assert _card_error(db.numpy(), want_b[i]) <= CARD_LIMIT
+
+
+def test_3xtf32_holds_the_card_limit_where_tf32_does_not():
+    """A full-width N-hop degree-4 group (K = 440, L = 50, P = 12) with M
+    cut to 300 rows, operands as on the model's path (unit rows of a, unit
+    columns of b along k): the three products stand within 1e-5 * max(1,
+    max |fp64|) of the fp64 gradients; hi*hi alone (plain TF32) does not,
+    for either gradient. The emulation sums in IEEE fp32, so this checks
+    the split alone; the tensor cores' own sums, which round toward zero at
+    each accumulation, are held against fp64 on the card
+    (``test_cuda_backward_kernels_as_accurate_as_fp32``)."""
+    rng = np.random.default_rng(7)
+    m, k, l, p = 300, 440, 50, 12
+    a = rng.standard_normal((m, k))
+    b = rng.standard_normal((p, l, k))
+    a = torch.from_numpy(a / np.linalg.norm(a, axis=1, keepdims=True))
+    b = torch.from_numpy(
+        (b / np.linalg.norm(b, axis=2, keepdims=True)).transpose(0, 2, 1)
+        .copy())
+    g = torch.from_numpy(rng.standard_normal((m, l)))
+    idx = torch.from_numpy(rng.integers(0, p, (m, l), dtype=np.int32))
+    exact = ss.support_score_backward_plain(a, b, g, idx)
+    split = ss.support_score_backward_3xtf32(a, b, g, idx)
+    tf32 = ss.support_score_backward_3xtf32(a, b, g, idx, terms=1)
+    for got, plain, want in zip(split, tf32, exact):
+        assert _card_error(got.numpy(), want.numpy()) <= CARD_LIMIT
+        assert _card_error(plain.numpy(), want.numpy()) > CARD_LIMIT
+
+
+def test_3xtf32_leaves_out_what_is_not_needed():
+    rng = np.random.default_rng(8)
+    a = torch.from_numpy(rng.standard_normal((5, 6))).float()
+    b = torch.from_numpy(rng.standard_normal((2, 6, 3))).float()
+    g = torch.from_numpy(rng.standard_normal((5, 3))).float()
+    idx = torch.from_numpy(rng.integers(0, 2, (5, 3), dtype=np.int32))
+    da, db = ss.support_score_backward_3xtf32(a, b, g, idx, need_b=False)
+    assert da.shape == (5, 6) and db is None
+    da, db = ss.support_score_backward_3xtf32(a, b, g, idx, need_a=False)
+    assert da is None and db.shape == (2, 6, 3)
+
+
+@pytest.mark.parametrize(
+    "shape,need_a,need_b,want",
+    [
+        # da: 64 x 32 x 16 of M, K, N; db: 64 x 32 x 32 of K, N, M.
+        ((64, 32, 8, 1), True, False, 6 * 64 * 32 * 16),
+        ((64, 32, 8, 1), False, True, 6 * 64 * 32 * 64),
+        ((65, 28, 10, 1), True, True,
+         6 * (128 * 32 * 16 + 64 * 32 * 96)),
+        ((0, 28, 10, 1), True, True, 0),
+    ],
+)
+def test_backward_mma_flops(shape, need_a, need_b, want):
+    """The TF32 operations the kernels issue: the one-hot products padded
+    to the kernels' tiles, three of them, 2 operations a multiply-add
+    (``tools/backward_profile.py``'s count, which phase 5 prints too)."""
+    work = tf32_work([shape], [need_a], [need_b], device_ms=2.0)
+    assert work["flops"] == want
+    assert work["ms"] == pytest.approx(want / 495e9)
+    assert work["share"] == pytest.approx(work["ms"] / 2.0)
