@@ -40,7 +40,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
               than 1e-4 apart); the backward kernels against their plain
               version (the dense route: a scatter and two products a group)
               on the same tensors, max |diff| <= 1e-5 * max(1, max |plain|)
-              for each gradient;
+              for each gradient, and against the dense route in fp64:
+              max |x - x64| <= 2 max |cuBLAS fp32 - x64| + 2^-23 max |x64|
+              for each group and gradient;
               the backward's time by events and its kernels' device time
               (profiler) per layer and a train step, beside its byte bound,
               the TF32 work its tensor-core kernels issue (and its time at
@@ -1030,21 +1032,35 @@ class Smoke:
             das, dbs = ss.support_score_backward(a_list, b_list, g_list, idxs)
             if ss.support_score_backward.launches != before + 1:
                 raise AssertionError("the backward did not launch once")
-            err, worst = 0.0, 0.0
+            err, worst, far = 0.0, 0.0, []
             for got, a, b, g, idx in zip(zip(das, dbs), a_list, b_list,
                                          g_list, idxs):
-                for x, w in zip(got, ss.support_score_backward_plain(
-                        a, b, g, idx)):
+                exact = ss.support_score_backward_plain(
+                    a.double(), b.double(), g.double(), idx)
+                for x, w, x64 in zip(got, ss.support_score_backward_plain(
+                        a, b, g, idx), exact):
                     diff = (x - w).abs().max().item()
                     err = max(err, diff)
                     worst = max(worst,
                                 diff / max(1.0, w.abs().max().item()))
+                    far.append(((x.double() - x64).abs().max().item(),
+                                (w.double() - x64).abs().max().item(),
+                                2.0 ** -23 * x64.abs().max().item()))
             log(f"    backward kernels against the plain version on the "
                 f"same tensors: max |diff| {err:.3e}, max |diff| / max(1, "
                 f"max |plain|) {worst:.3e} (limit 1e-5, each gradient)")
             if worst > 1e-5:
                 raise AssertionError(f"{layer}: backward kernels differ from "
                                      "the plain version")
+            # Against the dense route in fp64: within twice cuBLAS fp32's
+            # distance plus an fp32 ulp of max |x64|, each group and
+            # gradient (da, db in turn).
+            log("    max |x - x64| of the kernels; of cuBLAS fp32 (da, db a "
+                "group): " + "; ".join(
+                    f"{k:.3e}, {c:.3e}" for k, c, _ in far))
+            if any(k > 2 * c + ulp for k, c, ulp in far):
+                raise AssertionError(f"{layer}: backward kernels farther "
+                                     "from fp64 than twice cuBLAS fp32")
 
             def backward():
                 return torch.autograd.grad(flat[:4], ta + tb, g_list,

@@ -18,7 +18,9 @@
 //   db[p, :, l] = a^T S  (a reduction over m: K x N x M multiply-adds)
 // S is never in device memory: da builds it in registers, db in shared
 // memory, from g and idx. Each product runs as m64nNk8 TF32 `wgmma`s (N =
-// 32C, C = 1 .. 8) with fp32 accumulators, the A operand from registers
+// 32C: C = 1 .. 4 in da, 1 .. 2 in db) with fp32 accumulators, each
+// promoted into an fp32 sum every few steps (see Accuracy), the A operand
+// from registers
 // and B from shared memory, K-major without swizzle (core matrices of 8
 // rows x 16 bytes; for tf32, wgmma reads shared memory only K-major). For
 // fp32 accuracy each operand x is split into hi = tf32(x) and lo = tf32(x
@@ -36,7 +38,7 @@
 // products are dense over P: 22.6M * F multiply-adds a product at the
 // flagship (F = 28 at layer 0, 110 at an N-hop layer), three times over
 // for the split, padded to the tiles below (`tf32_work` in
-// tools/backward_profile.py counts them: 109 GFLOP of TF32 a flagship
+// tools/backward_profile.py counts them: 110 GFLOP of TF32 a flagship
 // train step, 0.22 ms at 495 TFLOP/s). On the H100 the tensor cores are
 // not what binds: a k8 step's products are short against the instructions
 // that build the step's one-hot fragment, and the streams of Bt (da, about
@@ -49,56 +51,68 @@
 //     column tile after column tile in the layout of da's shared-memory
 //     stages, with da's reduction order n' = l P + p.
 //   * score_grad_da_kernel: a block owns 128 rows (64 a warpgroup, two
-//     warpgroups) and up to 256 columns k. The rows' g (split into hi and
+//     warpgroups) and up to 128 columns k. The rows' g (split into hi and
 //     lo once) and idx wait in shared memory (L <= 50; else read from
-//     device memory); Bt's tile streams through a ring of 4 stages of 2 k8
+//     device memory); Bt's tile streams through a ring of 4 stages of 4 k8
 //     steps, one bulk copy a stage on the tensor memory accelerator
 //     (cp.async.bulk with an mbarrier), two stages ahead. In the order
 //     n' = l P + p a thread's two columns of a step are (p, l) by one
 //     multiply with a reciprocal of P, so a fragment entry is a compare and
 //     two selects, and one group of products stays in flight while the
-//     next fragment is read.
+//     next fragment is read. At the start of every stage (kDaPromoteSteps
+//     = 4 steps) the warpgroup drains its products and promotes its
+//     accumulator: 64 + 64 registers of accumulator and sum a thread at
+//     128 columns.
 //   * score_grad_db_kernel: a block owns 256 columns k (64 a warpgroup,
-//     four warpgroups), up to 128 columns n and a fixed range of rows,
+//     four warpgroups), up to 64 columns n and a fixed range of rows,
 //     walked 32 rows at a time. a's rows land by cp.async in their natural
 //     [m][k] layout (three stages) and each thread reads its a^T fragment
 //     from there and splits it; while a chunk runs on the tensor cores all
 //     threads build the next chunk's S (hi and lo, K-major: m contiguous
 //     for each n) in the other of two buffers, reading g and idx through
-//     L1. The range's sums go to scratch.
+//     L1. After each chunk, whose products the warpgroup drains anyway,
+//     the accumulator is promoted (32 + 32 registers a thread, within the
+//     128 of a 512-thread block). The range's sums go to scratch.
 //   * score_grad_db_sum_kernel adds the ranges' partial sums into db
 //     [P, K, L]. The ranges share about 132 blocks out among the groups by
-//     their work, at most 32 kDbRangeChunks P rows a range (see Accuracy).
+//     their work, at most 32 kDbRangeChunks P rows a range: more blocks
+//     than the work share alone gives, the fastest cap measured
+//     (tools/backward_accuracy.py).
 //
 // The order of every sum, so that a call repeats bit for bit and does not
 // depend on the order of blocks: no atomics. da[m, k] is one accumulator
-// of one thread, to which the steps of 8 n' are added in ascending n',
-// each step as lo*hi, then hi*lo, then hi*hi. A db partial sum is one
-// accumulator of one thread, to which the steps of 8 rows of its range are
-// added in ascending m in the same order. db adds the ranges' sums in
-// eight running sums, range r into sum r % 8 in ascending r, then
-// ((s0 + s1) + (s2 + s3)) + ((s4 + s5) + (s6 + s7)). The tensor cores' own
-// order inside a step is fixed by the hardware. The kernels go on the
-// caller's stream one after another and never synchronise with the host,
-// so a CUDA graph captures them.
+// and one sum of one thread: the steps of 8 n' go into the accumulator in
+// ascending n', each step as lo*hi, then hi*lo, then hi*hi, and every
+// kDaPromoteSteps steps (and after the last) the accumulator is added into
+// the sum (__fadd_rn) and the next product overwrites it. A db partial sum
+// is the same over the steps of 8 rows of its range in ascending m, the
+// accumulator promoted every kDbPromoteChunks chunks of 32 rows. db adds
+// the ranges' sums in eight running sums, range r into sum r % 8 in
+// ascending r, then ((s0 + s1) + (s2 + s3)) + ((s4 + s5) + (s6 + s7)). The
+// tensor cores' own order inside a step is fixed by the hardware. The
+// kernels go on the caller's stream one after another and never
+// synchronise with the host, so a CUDA graph captures them.
 //
 // Accuracy. The split alone stays within about 2x of fp32's error (summed
-// in IEEE fp32), but the tensor cores round each accumulation toward zero,
-// so a sum can lose an ulp at each accumulation of its chain: da's chain
-// is 3 a step over P L / 8 steps, db's 3 a step of 8 rows of its range.
-// At the flagship's grouped calls on an H100, da stands 1.2-10x and db
-// 2-16x as far from fp64 as cuBLAS's fp32 products, growing with P; plain
-// TF32 (hi*hi alone) stands hundreds of times as far.
-// tools/backward_accuracy.py measures both, db at other range lengths:
-// ranges of 32 P rows cost 20-30% more time a call, and ranges longer than
-// 128 P rows saved at most 4% while db's error grew with them. Keeping fp32's
-// accuracy would take a second sum in registers, added to every few steps,
-// for which da's 128 x 256 tile has no registers left.
+// in IEEE fp32), but the tensor cores round each accumulation into the
+// fp32 accumulator toward zero, so a sum loses up to an ulp at each
+// accumulation of its chain, always toward zero. Unpromoted, the chains
+// were 3 a step over P L / 8 steps (da) and over the rows of a range (db),
+// and at the flagship's grouped calls on an H100 da stood up to 10x and db
+// up to 19x as far from fp64 as cuBLAS's fp32 products. Promotion (as FP8
+// GEMMs on Hopper do it) cuts every chain to at most 4 steps, 12
+// accumulations, and leaves the rest of the sum to IEEE fp32 adds in a
+// fixed order: both gradients then stand within 2x of cuBLAS's distance
+// (plus 2^-23 of the largest value) in every group of both calls
+// (tools/backward_accuracy.py sweeps the intervals: da at 8 steps and db
+// at 4 chunks fail it). support_score_backward_emulated in
+// ops/support_score.py models this rounding on the CPU.
 
 #include <cuda_runtime.h>
 
 #include <algorithm>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -108,11 +122,18 @@ constexpr int kDaThreads = 128 * kDaWarpgroups;
 constexpr int kDbWarpgroups = 4;  // a block of db
 constexpr int kDbThreads = 128 * kDbWarpgroups;
 constexpr int kMaxGroups = 16;
-constexpr int kChunk = 32;  // a tile's columns: 32C, C = 1 .. 4
-constexpr int kMaxChunks = 4;  // db's columns of n a block, in chunks
+constexpr int kChunk = 32;  // a tile's columns: 32C
+constexpr int kMaxChunks = 2;  // db's columns of n a block, in chunks
 constexpr int kTile = kChunk * kMaxChunks;
-constexpr int kDaMaxChunks = 8;  // da's columns of k a block, in chunks
+constexpr int kDaMaxChunks = 4;  // da's columns of k a block, in chunks
 constexpr int kDaTile = kChunk * kDaMaxChunks;
+
+// Promotion: a thread's wgmma accumulator takes the products of at most
+// kDaPromoteSteps k8 steps (da; a whole number of stages) or of
+// kDbPromoteChunks chunks of rows (db) from zero, and is then added into
+// the thread's fp32 sum, rounded to nearest (see Accuracy).
+constexpr int kDaPromoteSteps = 4;
+constexpr int kDbPromoteChunks = 1;
 
 // da stages g and idx in shared memory where L is at most kDaGiMaxL, else
 // reads them from device memory; db reads them through L1.
@@ -122,14 +143,16 @@ constexpr int kDaGiMaxL = 50;
 // stages; a step of Bt is hi and lo, two core-matrix columns each:
 // [2][2][tile][4]; then the block's g's hi and lo and idx, [rows][L] each.
 constexpr int kDaRows = 64 * kDaWarpgroups;
-constexpr int kDaSteps = 2;
+constexpr int kDaSteps = 4;
 constexpr int kDaStages = 4;
 constexpr int kDaStageFloats = kDaSteps * 16 * kDaTile;
 constexpr int kDaRingFloats = kDaStages * kDaStageFloats;
 constexpr int kDaSmem = (kDaRingFloats + 3 * kDaRows * kDaGiMaxL) * 4;
+static_assert(kDaPromoteSteps % kDaSteps == 0,
+              "da promotes at the start of a stage");
 
 // db: rows a chunk (4 k8 steps), columns k a block (64 a warpgroup), the
-// padded row of a staged a (264 = 8 mod 32: a warp's
+// padded row of a staged a (kDbK + 8 = 8 mod 32: a warp's
 // fragment reads fall in 32 banks); a stage holds a chunk's a, a buffer
 // S's hi and lo [2][kDbRows / 4][tile][4]; three stages, two buffers of S;
 // blocks of all the groups together, shared out by the groups' work.
@@ -142,9 +165,14 @@ constexpr int kDbStages = 3;
 constexpr int kDbSFloats = 2 * kDbRows * kTile;
 constexpr int kDbSmem = (kDbStages * kDbStageFloats + 2 * kDbSFloats) * 4;
 constexpr int kDbBlocks = 132;
-// At most kDbRangeChunks P chunks of rows a db range: about 32
-// kDbRangeChunks rows reach each partial sum (tools/backward_accuracy.py
-// measures db's error at other lengths).
+// db's a^T fragments in registers: one more than its groups of products in
+// flight (two cost the 128-register block 8 bytes of spills).
+constexpr int kDbFragments = 1;
+// At most kDbRangeChunks P chunks of rows a db range, about 32
+// kDbRangeChunks rows a partial sum: more ranges, and blocks, than the
+// work share alone gives where P is small (the fastest cap measured by
+// tools/backward_accuracy.py; promotion keeps the error from growing with a
+// range's rows).
 constexpr int kDbRangeChunks = 4;
 
 struct Group {
@@ -318,20 +346,21 @@ __device__ __forceinline__ uint64_t smem_desc(const float* p, uint32_t lbo,
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32);
 }
 
-// d[64 x 32C] += A[64 x 8] B[8 x 32C] on the warpgroup's tensor cores
-// (m64n{32C}k8), TF32 in, fp32 accumulate. A from registers: thread
+// d[64 x 32C] = A[64 x 8] B[8 x 32C] (+ d where `accumulate` is not 0) on
+// the warpgroup's tensor cores (m64n{32C}k8), TF32 in, fp32 accumulate (the
+// wgmma's scale-d). A from registers: thread
 // (warp w, lane) holds rows 16w + lane/4 (+8 in a[1], a[3]) and columns
 // lane%4 (+4 in a[2], a[3]). d: row 16w + lane/4 (+8 in d[4j+2], d[4j+3]),
 // column 8j + 2(lane%4) (+1 in d[4j+1], d[4j+3]).
 template <int C>
 __device__ __forceinline__ void mma_tf32(float (&d)[16 * C],
                                          const uint32_t (&a)[4],
-                                         uint64_t desc_b);
+                                         uint64_t desc_b, int accumulate);
 
 // The operands of m64n{32C}k8: the accumulators' numbers in the
 // instruction's text (%0 .. %(16C - 1)) and d[0 .. 16C - 1] as read-write
-// operands; the A fragment, the descriptor and the scale flag follow as
-// %(16C) .. %(16C + 5).
+// operands; the A fragment, the descriptor and the accumulate flag follow
+// as %(16C) .. %(16C + 5).
 #define WG_REGS1 "%0, %1, %2, %3, %4, %5, %6, %7, " \
     "%8, %9, %10, %11, %12, %13, %14, %15"
 #define WG_REGS2 WG_REGS1 ", %16, %17, %18, %19, %20, %21, %22, %23, " \
@@ -340,14 +369,6 @@ __device__ __forceinline__ void mma_tf32(float (&d)[16 * C],
     "%40, %41, %42, %43, %44, %45, %46, %47"
 #define WG_REGS4 WG_REGS3 ", %48, %49, %50, %51, %52, %53, %54, %55, " \
     "%56, %57, %58, %59, %60, %61, %62, %63"
-#define WG_REGS5 WG_REGS4 ", %64, %65, %66, %67, %68, %69, %70, %71, " \
-    "%72, %73, %74, %75, %76, %77, %78, %79"
-#define WG_REGS6 WG_REGS5 ", %80, %81, %82, %83, %84, %85, %86, %87, " \
-    "%88, %89, %90, %91, %92, %93, %94, %95"
-#define WG_REGS7 WG_REGS6 ", %96, %97, %98, %99, %100, %101, %102, %103, " \
-    "%104, %105, %106, %107, %108, %109, %110, %111"
-#define WG_REGS8 WG_REGS7 ", %112, %113, %114, %115, %116, %117, %118, %119, " \
-    "%120, %121, %122, %123, %124, %125, %126, %127"
 #define WG_D16(i)                                                    \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7]),  \
@@ -357,14 +378,11 @@ __device__ __forceinline__ void mma_tf32(float (&d)[16 * C],
 #define WG_D2 WG_D1, WG_D16(16)
 #define WG_D3 WG_D2, WG_D16(32)
 #define WG_D4 WG_D3, WG_D16(48)
-#define WG_D5 WG_D4, WG_D16(64)
-#define WG_D6 WG_D5, WG_D16(80)
-#define WG_D7 WG_D6, WG_D16(96)
-#define WG_D8 WG_D7, WG_D16(112)
 #define WG_MMA_TF32(C, N, A0, A1, A2, A3, DESC, SCALE)                     \
   template <>                                                              \
   __device__ __forceinline__ void mma_tf32<C>(                             \
-      float(&d)[16 * C], const uint32_t(&a)[4], uint64_t desc_b) {         \
+      float(&d)[16 * C], const uint32_t(&a)[4], uint64_t desc_b,          \
+      int accumulate) {                                                    \
     asm volatile(                                                          \
         "{\n"                                                              \
         ".reg .pred p;\n"                                                  \
@@ -375,16 +393,14 @@ __device__ __forceinline__ void mma_tf32(float (&d)[16 * C],
         "}\n"                                                              \
         : WG_D##C                                                          \
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),        \
-          "r"(1));                                                         \
+          "r"(accumulate));                                                \
   }
 WG_MMA_TF32(1, 32, 16, 17, 18, 19, 20, 21)
 WG_MMA_TF32(2, 64, 32, 33, 34, 35, 36, 37)
 WG_MMA_TF32(3, 96, 48, 49, 50, 51, 52, 53)
 WG_MMA_TF32(4, 128, 64, 65, 66, 67, 68, 69)
-WG_MMA_TF32(5, 160, 80, 81, 82, 83, 84, 85)
-WG_MMA_TF32(6, 192, 96, 97, 98, 99, 100, 101)
-WG_MMA_TF32(7, 224, 112, 113, 114, 115, 116, 117)
-WG_MMA_TF32(8, 256, 128, 129, 130, 131, 132, 133)
+static_assert(kDaMaxChunks <= 4 && kMaxChunks <= 4,
+              "mma_tf32 is defined for C <= 4");
 #undef WG_MMA_TF32
 #undef WG_D16
 #undef WG_REGS1
@@ -395,14 +411,6 @@ WG_MMA_TF32(8, 256, 128, 129, 130, 131, 132, 133)
 #undef WG_D3
 #undef WG_REGS4
 #undef WG_D4
-#undef WG_REGS5
-#undef WG_D5
-#undef WG_REGS6
-#undef WG_D6
-#undef WG_REGS7
-#undef WG_D7
-#undef WG_REGS8
-#undef WG_D8
 
 __device__ __forceinline__ void wg_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -440,19 +448,43 @@ __device__ __forceinline__ void keep_frag(uint32_t (&f)[4]) {
 }
 
 // One k8 step of a warpgroup's product (A from registers) with one B of
-// 32C columns: lo*hi, hi*lo, hi*hi into one accumulator. b_hi and b_lo:
-// B's hi and lo parts, K-major, the next 16 bytes of K `lbo` bytes on.
+// 32C columns: lo*hi, hi*lo, hi*hi into one accumulator, which the first
+// of them overwrites where `accumulate` is 0. b_hi and b_lo: B's hi and lo
+// parts, K-major, the next 16 bytes of K `lbo` bytes on.
 template <int C>
 __device__ __forceinline__ void mma_step(float (&acc)[16 * C],
                                          const uint32_t (&a_hi)[4],
                                          const uint32_t (&a_lo)[4],
                                          const float* b_hi, const float* b_lo,
-                                         uint32_t lbo) {
+                                         uint32_t lbo, int accumulate) {
   const uint64_t dh = smem_desc(b_hi, lbo, 128);
   const uint64_t dl = smem_desc(b_lo, lbo, 128);
-  mma_tf32<C>(acc, a_lo, dh);
-  mma_tf32<C>(acc, a_hi, dl);
-  mma_tf32<C>(acc, a_hi, dh);
+  mma_tf32<C>(acc, a_lo, dh, accumulate);
+  mma_tf32<C>(acc, a_hi, dl, 1);
+  mma_tf32<C>(acc, a_hi, dh, 1);
+}
+
+// Promotion: the accumulator's value, which the wgmmas have finished
+// (wgmma.wait_group 0), added into the thread's sum rounded to nearest.
+template <int C>
+__device__ __forceinline__ void promote(float (&sum)[16 * C],
+                                        const float (&acc)[16 * C]) {
+#pragma unroll
+  for (int j = 0; j < 16 * C; ++j) sum[j] = __fadd_rn(sum[j], acc[j]);
+}
+
+// Calls body(std::integral_constant<int, C>) for C = min(chunks, kMax),
+// at least 1, instantiating no C above kMax: a kernel takes the registers
+// of its widest tile.
+template <int kMax, typename Body>
+__device__ __forceinline__ void with_chunks(int chunks, Body&& body) {
+  if constexpr (kMax > 1) {
+    if (chunks < kMax) {
+      with_chunks<kMax - 1>(chunks, body);
+      return;
+    }
+  }
+  body(std::integral_constant<int, kMax>{});
 }
 
 // ------------------------------------------------------------------ pack
@@ -508,7 +540,9 @@ score_grad_pack_kernel(const __grid_constant__ GroupTable table,
 // memory accelerator, two stages ahead; one group of products stays in
 // flight across the stages. Each step's g and idx are read while the step
 // before runs on the tensor cores; the warpgroups' products share each
-// staged step of Bt.
+// staged step of Bt. Every kDaPromoteSteps steps, once the step's fragment
+// is built, the warpgroup drains its products, adds the accumulator into
+// its sum, and the step's first product overwrites the accumulator.
 template <int C, bool STAGED>
 __device__ __forceinline__ void da_block(const Group& g, int local,
                                          float* smem, uint64_t* full) {
@@ -594,9 +628,9 @@ __device__ __forceinline__ void da_block(const Group& g, int local,
     }
   };
 
-  float acc[16 * C];
+  float acc[16 * C], sum[16 * C];
 #pragma unroll
-  for (int j = 0; j < 16 * C; ++j) acc[j] = 0.f;
+  for (int j = 0; j < 16 * C; ++j) acc[j] = sum[j] = 0.f;
   uint32_t fh[2][4], fl[2][4];
   if (tid == 0) {
 #pragma unroll
@@ -634,10 +668,19 @@ __device__ __forceinline__ void da_block(const Group& g, int local,
         keep_frag(fh[s & 1]);
         keep_frag(fl[s & 1]);
         fragment(fh[s & 1], fl[s & 1]);
+        // Promotion (a no-op on the zeroed accumulator at step 0); the
+        // step's first product then overwrites the accumulator.
+        const bool fresh = (st * kDaSteps + s) % kDaPromoteSteps == 0;
+        if (fresh) {
+          wg_wait<0>();
+          keep_acc<C>(acc);
+          promote<C>(sum, acc);
+        }
         keep_acc<C>(acc);
         wg_fence();
         const float* b = slot + s * 16 * W;
-        mma_step<C>(acc, fh[s & 1], fl[s & 1], b, b + 2 * W * 4, W * 16);
+        mma_step<C>(acc, fh[s & 1], fl[s & 1], b, b + 2 * W * 4, W * 16,
+                    !fresh);
         wg_commit();
         if (st * kDaSteps + s + 1 < g.nsteps) load(st * kDaSteps + s + 1);
       }
@@ -646,6 +689,7 @@ __device__ __forceinline__ void da_block(const Group& g, int local,
   if (!live) return;
   wg_wait<0>();
   keep_acc<C>(acc);
+  promote<C>(sum, acc);
 #pragma unroll
   for (int j = 0; j < 4 * C; ++j) {
 #pragma unroll
@@ -654,20 +698,10 @@ __device__ __forceinline__ void da_block(const Group& g, int local,
       const int k = k0 + j * 8 + 2 * (lane & 3);
       if (m < g.m) {
         float* out = g.da + static_cast<size_t>(m) * g.k + k;
-        if (k < g.k) out[0] = acc[4 * j + 2 * i];
-        if (k + 1 < g.k) out[1] = acc[4 * j + 2 * i + 1];
+        if (k < g.k) out[0] = sum[4 * j + 2 * i];
+        if (k + 1 < g.k) out[1] = sum[4 * j + 2 * i + 1];
       }
     }
-  }
-}
-
-template <int C>
-__device__ __forceinline__ void da_block_any(const Group& g, int local,
-                                             float* smem, uint64_t* full) {
-  if (g.l <= kDaGiMaxL) {
-    da_block<C, true>(g, local, smem, full);
-  } else {
-    da_block<C, false>(g, local, smem, full);
   }
 }
 
@@ -684,16 +718,14 @@ score_grad_da_kernel(const __grid_constant__ GroupTable table) {
   const Group& g = table.g[find_group(table, blockIdx.x, &Group::da_begin)];
   const int local = blockIdx.x - g.da_begin;
   const int k0 = (local % g.da_ktiles) * kDaTile;
-  switch (min(kDaMaxChunks, (g.kp - k0) / kChunk)) {
-    case 8: da_block_any<8>(g, local, smem, full); break;
-    case 7: da_block_any<7>(g, local, smem, full); break;
-    case 6: da_block_any<6>(g, local, smem, full); break;
-    case 5: da_block_any<5>(g, local, smem, full); break;
-    case 4: da_block_any<4>(g, local, smem, full); break;
-    case 3: da_block_any<3>(g, local, smem, full); break;
-    case 2: da_block_any<2>(g, local, smem, full); break;
-    default: da_block_any<1>(g, local, smem, full); break;
-  }
+  const bool staged = g.l <= kDaGiMaxL;
+  with_chunks<kDaMaxChunks>((g.kp - k0) / kChunk, [&](auto c) {
+    if (staged) {
+      da_block<decltype(c)::value, true>(g, local, smem, full);
+    } else {
+      da_block<decltype(c)::value, false>(g, local, smem, full);
+    }
+  });
 }
 
 // ------------------------------------------------------------------- db
@@ -720,7 +752,10 @@ __device__ __forceinline__ void db_issue(const Group& g, int m0, int r1,
 // range, 32 at a time. A chunk's rows of a land in one stage by cp.async.
 // While a chunk runs on the tensor cores the threads build the next
 // chunk's S in the other buffer, one entry a step (g and idx read a step
-// ahead), and the chunk after next is in flight.
+// ahead), and the chunk after next is in flight. After every
+// kDbPromoteChunks chunks (and the last), with the products drained, the
+// accumulator is added into the thread's sum, and the next chunk's first
+// product overwrites it.
 template <int C>
 __device__ __forceinline__ void db_block(const Group& g, int local,
                                          float* smem) {
@@ -760,43 +795,52 @@ __device__ __forceinline__ void db_block(const Group& g, int local,
   };
 
   // Entry j (of kEntries) of a thread: 4 rows of one n, j * kDbThreads + tid
-  // = quad * W + n - n0 (none past W * kDbRows / 4: ro = -1). load() reads
-  // its g and idx (of chunk c) through L1, store() splits and writes it.
+  // = quad * W + n - n0 (none past W * kDbRows / 4). load() reads its g and
+  // idx (of chunk c) through L1, store() splits and writes it; both find
+  // the entry's n, p and place from j (no registers held between them but
+  // the loaded values).
   constexpr int kEntries = (W * kDbRows / 4 + kDbThreads - 1) / kDbThreads;
   static_assert(kEntries <= kDbRows / 8, "one entry of S a step at most");
   float rg[4];
-  int ri[4], rp = 0, ro = 0;
+  int ri[4];
+  const auto entry_p = [&](int nl) {
+    const int n = n0 + nl;
+    return g.linv ? static_cast<int>(__umulhi(static_cast<unsigned>(n),
+                                              g.linv))
+                  : n;
+  };
   const auto load = [&](int c, int j) {
     const int m0 = r0 + c * kDbRows;
     const int e = j * kDbThreads + tid;
-    ro = -1;
     if (e >= W * kDbRows / 4) return;
     const int quad = e / W;
     const int nl = e - quad * W;
-    const int n = n0 + nl;
-    rp = g.linv ? __umulhi(static_cast<unsigned>(n), g.linv) : n;
-    const int l = n - rp * g.l;
-    ro = (quad * W + nl) * 4;
+    const int p = entry_p(nl);
+    const int l = n0 + nl - p * g.l;
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int m = m0 + quad * 4 + u;
       rg[u] = 0.f;
       ri[u] = -1;
-      if (m < r1 && rp < g.p) {
+      if (m < r1 && p < g.p) {
         const size_t o = static_cast<size_t>(m) * g.l + l;
         rg[u] = __ldg(g.g + o);
         ri[u] = __ldg(g.idx + o);
       }
     }
   };
-  const auto store = [&](int buf) {
-    if (ro < 0) return;
+  const auto store = [&](int buf, int j) {
+    const int e = j * kDbThreads + tid;
+    if (e >= W * kDbRows / 4) return;
+    const int quad = e / W;
+    const int nl = e - quad * W;
+    const int p = entry_p(nl);
     uint32_t hi[4], lo[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      split_tf32(ri[u] == rp ? rg[u] : 0.f, hi[u], lo[u]);
+      split_tf32(ri[u] == p ? rg[u] : 0.f, hi[u], lo[u]);
     }
-    float* dst = s_hi(buf) + ro;
+    float* dst = s_hi(buf) + (quad * W + nl) * 4;
     *reinterpret_cast<uint4*>(dst) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
     *reinterpret_cast<uint4*>(dst + kDbRows * W) =
         make_uint4(lo[0], lo[1], lo[2], lo[3]);
@@ -818,10 +862,11 @@ __device__ __forceinline__ void db_block(const Group& g, int local,
     }
   };
 
-  float acc[16 * C];
+  float acc[16 * C], sum[16 * C];
 #pragma unroll
-  for (int j = 0; j < 16 * C; ++j) acc[j] = 0.f;
-  uint32_t fh[2][4], fl[2][4];
+  for (int j = 0; j < 16 * C; ++j) acc[j] = sum[j] = 0.f;
+  constexpr int F = kDbFragments;
+  uint32_t fh[F][4], fl[F][4];
   if (chunks > 0) issue(0);
   cp_async_commit();
   if (chunks > 1) issue(1);
@@ -830,7 +875,7 @@ __device__ __forceinline__ void db_block(const Group& g, int local,
 #pragma unroll
     for (int j = 0; j < kEntries; ++j) {
       load(0, j);
-      store(0);
+      store(0, j);
     }
   }
   cp_async_wait<1>();  // chunk 0 is in
@@ -848,34 +893,36 @@ __device__ __forceinline__ void db_block(const Group& g, int local,
       const float* sh = s_hi(buf);
 #pragma unroll
       for (int s = 0; s < kDbRows / 8; ++s) {
-        if (s >= 2) {
-          wg_wait<1>();
-          keep_frag(fh[s & 1]);
-          keep_frag(fl[s & 1]);
+        if (s >= F) {
+          wg_wait<F - 1>();
+          keep_frag(fh[s % F]);
+          keep_frag(fl[s % F]);
         }
-        fragment(as, s, fh[s & 1], fl[s & 1]);
+        fragment(as, s, fh[s % F], fl[s % F]);
         keep_acc<C>(acc);
         wg_fence();
         // Step s covers rows 8s .. 8s + 7: the quads 2s and 2s + 1.
-        mma_step<C>(acc, fh[s & 1], fl[s & 1], sh + 2 * s * W * 4,
-                    sh + kDbRows * W + 2 * s * W * 4, W * 16);
+        mma_step<C>(acc, fh[s % F], fl[s % F], sh + 2 * s * W * 4,
+                    sh + kDbRows * W + 2 * s * W * 4, W * 16,
+                    s > 0 || t % kDbPromoteChunks != 0);
         wg_commit();
-        if (next && s >= 1 && s <= kEntries) store(buf ^ 1);
+        if (next && s >= 1 && s <= kEntries) store(buf ^ 1, s - 1);
         if (next && s < kEntries) load(t + 1, s);
       }
       wg_wait<0>();
       keep_acc<C>(acc);
+      if (!next || (t + 1) % kDbPromoteChunks == 0) promote<C>(sum, acc);
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
+      for (int j = 0; j < F; ++j) {
         keep_frag(fh[j]);
         keep_frag(fl[j]);
       }
-      if (next && kEntries == kDbRows / 8) store(buf ^ 1);
+      if (next && kEntries == kDbRows / 8) store(buf ^ 1, kEntries - 1);
     } else if (next) {
 #pragma unroll
       for (int j = 0; j < kEntries; ++j) {
         load(t + 1, j);
-        store(buf ^ 1);
+        store(buf ^ 1, j);
       }
     }
     cp_async_wait<1>();  // chunk t + 1 is in
@@ -893,7 +940,7 @@ __device__ __forceinline__ void db_block(const Group& g, int local,
 #pragma unroll
       for (int j = 0; j < 4 * C; ++j) {
         *reinterpret_cast<float2*>(part + j * 8) =
-            make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+            make_float2(sum[4 * j + 2 * i], sum[4 * j + 2 * i + 1]);
       }
     }
   }
@@ -905,12 +952,9 @@ score_grad_db_kernel(const __grid_constant__ GroupTable table) {
   const Group& g = table.g[find_group(table, blockIdx.x, &Group::db_begin)];
   const int local = blockIdx.x - g.db_begin;
   const int nt = local % g.db_ntiles;
-  switch (min(kMaxChunks, g.db_nchunks - nt * kMaxChunks)) {
-    case 4: db_block<4>(g, local, smem); break;
-    case 3: db_block<3>(g, local, smem); break;
-    case 2: db_block<2>(g, local, smem); break;
-    default: db_block<1>(g, local, smem); break;
-  }
+  with_chunks<kMaxChunks>(g.db_nchunks - nt * kMaxChunks, [&](auto c) {
+    db_block<decltype(c)::value>(g, local, smem);
+  });
 }
 
 // db[p, k, l] = the sum over ranges of the partial sums at (k, n = p L +
@@ -1079,8 +1123,8 @@ static int plan(int num_groups, const int64_t* args, float* scratch,
     const int64_t work = static_cast<int64_t>(g.db_ktiles) * g.db_nchunks *
                          chunks;
     const int64_t target = std::max<int64_t>(1, kDbBlocks * work / db_work);
-    // At most 32 kDbRangeChunks P rows a range, since the tensor cores'
-    // fp32 sums lose precision with the length of the chain.
+    // At most 32 kDbRangeChunks P rows a range: more blocks where P is
+    // small (see kDbRangeChunks).
     const int64_t ranges = std::min<int64_t>(
         chunks,
         std::max({ceil_div(target, tiles),

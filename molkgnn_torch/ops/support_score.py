@@ -49,7 +49,9 @@ more registered op, ``torch.ops.molkgnn.support_score_backward``:
     gradients as dense products with the one-hot matrix
     S[m, p * L + l] = g[m, l] [idx[m, l] == p] on the tensor cores, in
     3xTF32 (every fp32 operand split into TF32 hi and lo parts, three
-    products; ``support_score_backward_3xtf32`` emulates the arithmetic):
+    products; ``support_score_backward_3xtf32`` emulates the split), each
+    tensor-core accumulator added into an fp32 sum every few steps
+    (``support_score_backward_emulated`` models that rounding):
     b packed for da, da, db's partial sums over fixed ranges of rows, then
     their sum in a fixed order. No atomics and no host sync: a call repeats
     bit for bit and a CUDA graph captures it;
@@ -136,8 +138,8 @@ def support_score_backward_3xtf32(a: torch.Tensor, b: torch.Tensor,
     is lo*hi + hi*lo + hi*hi of the dense products, each product exact in
     fp32 and summed in fp32 by its own einsum. The kernels add the three
     into one accumulator a step of 8 terms, and the tensor cores round each
-    such addition toward zero, which this does not model: on the card the
-    error grows with the length of the chain (tools/backward_accuracy.py).
+    such addition toward zero, which this does not model
+    (``support_score_backward_emulated`` does).
     ``terms=1`` keeps hi*hi alone: plain TF32. Returns
     (da [M, K] or None, db [P, K, L] or None) in fp32."""
     if terms not in (1, 3):
@@ -156,6 +158,114 @@ def support_score_backward_3xtf32(a: torch.Tensor, b: torch.Tensor,
 
     da = product("mpl,pkl->mk", s, b) if need_a else None
     db = product("mk,mpl->pkl", a, s) if need_b else None
+    return da, db
+
+
+# The kernels' promotion intervals in k8 steps: kDaPromoteSteps, and 4
+# kDbPromoteChunks (a chunk of db is 32 rows), of csrc/support_score_bwd.cu.
+DA_PROMOTE_STEPS = 4
+DB_PROMOTE_STEPS = 4
+
+
+def _round_fp32(x: torch.Tensor, toward_zero: bool) -> torch.Tensor:
+    """fp64 ``x`` rounded to fp32, toward zero or to nearest (even), as an
+    fp32 tensor."""
+    r = x.to(torch.float32)
+    if not toward_zero:
+        return r
+    over = (r.double().abs() > x.abs()).to(torch.int32)
+    return (r.view(torch.int32) - over).view(torch.float32)
+
+
+def _tensor_core_sum(steps, promote, toward_zero):
+    """The sum of the k8 steps' products as the kernels take it: ``steps``
+    yields each step's three exact (fp64) products lo*hi, hi*lo, hi*hi,
+    each added into the fp32 accumulator and rounded (toward zero on the
+    tensor cores); every ``promote`` steps (None: at the end only) the
+    accumulator is added into an fp32 sum, rounded to nearest, and starts
+    again from the next product."""
+    total = acc = None
+    for t, products in enumerate(steps):
+        if promote is not None and t % promote == 0 and acc is not None:
+            total = acc if total is None else total + acc
+            acc = None
+        for x in products:
+            acc = _round_fp32(x if acc is None else acc.double() + x,
+                              toward_zero)
+    if acc is not None:
+        total = acc if total is None else total + acc
+    return total
+
+
+def support_score_backward_emulated(a: torch.Tensor, b: torch.Tensor,
+                                    g: torch.Tensor, idx: torch.Tensor,
+                                    need_a: bool = True, need_b: bool = True,
+                                    *, da_promote=DA_PROMOTE_STEPS,
+                                    db_promote=DB_PROMOTE_STEPS,
+                                    db_rows=None, toward_zero: bool = True):
+    """The CUDA backward kernels' arithmetic for one group, emulated in
+    plain PyTorch (a model of their rounding; nothing on a model path calls
+    it). The operands are taken as fp32 and split into TF32 hi and lo
+    (``split_tf32``). da sums over n' = l P + p and db over the rows of each
+    range of ``db_rows`` rows (a multiple of 8; None: one range of all M),
+    8 terms a k8 step: each step's products lo*hi, hi*lo and hi*hi are
+    taken exactly (fp64) and added into an fp32 accumulator, rounded toward
+    zero as the tensor cores round (to nearest with ``toward_zero=False``);
+    every ``da_promote`` / ``db_promote`` steps (None: never) the
+    accumulator is added into the fp32 sum, rounded to nearest
+    (``_tensor_core_sum``). db adds its ranges' sums in eight fp32 running
+    sums, range r into sum r % 8 in ascending r, then ((s0 + s1) + (s2 +
+    s3)) + ((s4 + s5) + (s6 + s7)), as ``score_grad_db_sum_kernel`` does.
+    Returns (da [M, K] or None, db [P, K, L] or None) in fp32."""
+    a, b, g = (t.to(torch.float32) for t in (a, b, g))
+    m, k = a.shape
+    p, _, l = b.shape
+    s = g.new_zeros(m, p, l).scatter_(1, idx.long().unsqueeze(1),
+                                      g.unsqueeze(1))
+    da = db = None
+    if need_a:
+        # S [M, n'] and Bt [n', K] over n' = l P + p, 8 n' a step.
+        s_hl = split_tf32(s.transpose(1, 2).reshape(m, l * p))
+        bt_hl = split_tf32(b.permute(2, 0, 1).reshape(l * p, k))
+        (s_hi, s_lo), (bt_hi, bt_lo) = ([x.double() for x in pair]
+                                        for pair in (s_hl, bt_hl))
+
+        def da_steps():
+            for n0 in range(0, l * p, 8):
+                c = slice(n0, n0 + 8)
+                yield (s_lo[:, c] @ bt_hi[c], s_hi[:, c] @ bt_lo[c],
+                       s_hi[:, c] @ bt_hi[c])
+
+        da = (_tensor_core_sum(da_steps(), da_promote, toward_zero)
+              if l * p else a.new_zeros(m, k))
+    if need_b:
+        # a^T [ranges][K, rows] and S [ranges][rows, n], n = p L + l, rows
+        # past M zero.
+        rows = m if db_rows is None else db_rows
+        ranges = max(1, -(-m // rows))
+        pad = ranges * rows - m
+        a_hl = split_tf32(torch.nn.functional.pad(a, (0, 0, 0, pad)))
+        s_hl = split_tf32(torch.nn.functional.pad(
+            s.reshape(m, p * l), (0, 0, 0, pad)))
+        a_hi, a_lo = (x.double().reshape(ranges, rows, k).transpose(1, 2)
+                      for x in a_hl)
+        s_hi, s_lo = (x.double().reshape(ranges, rows, p * l) for x in s_hl)
+
+        def db_steps():
+            for r0 in range(0, rows, 8):
+                c = slice(r0, r0 + 8)
+                yield (a_lo[..., c] @ s_hi[:, c], a_hi[..., c] @ s_lo[:, c],
+                       a_hi[..., c] @ s_hi[:, c])
+
+        part = (_tensor_core_sum(db_steps(), db_promote, toward_zero)
+                if rows else a.new_zeros(ranges, k, p * l))
+        sums = [part[j] for j in range(min(8, ranges))]
+        for r in range(8, ranges):
+            sums[r % 8] = sums[r % 8] + part[r]
+        sums += [torch.zeros_like(part[0])] * (8 - len(sums))
+        out = (((sums[0] + sums[1]) + (sums[2] + sums[3]))
+               + ((sums[4] + sums[5]) + (sums[6] + sums[7])))
+        db = out.reshape(k, p, l).transpose(0, 1).contiguous()
     return da, db
 
 

@@ -82,7 +82,7 @@ def tf32_work(shapes, need_a=None, need_b=None, device_ms=None) -> dict:
     (M, K, L, P), each taking da and db where needed (default: both): the
     dense one-hot products at the kernels' tiles, three times over for the
     3xTF32 split. da: 64-row warpgroup tiles (a tile's rows past M still
-    issue), K in chunks of 32, N = P * L in stages of 16. db: 64-column
+    issue), K in chunks of 32, N = P * L in stages of 32. db: 64-column
     warpgroup tiles of K (a tile wholly past K issues nothing), N in chunks
     of 32, M in chunks of 32.
     The one formula of this tool and of chip_smoke.py's phase 5; the tiles
@@ -96,7 +96,7 @@ def tf32_work(shapes, need_a=None, need_b=None, device_ms=None) -> dict:
     for (m, k, l, p), want_a, want_b in zip(shapes, need_a, need_b):
         n = p * l
         if want_a and m and k:
-            fma += _ceil_to(m, 64) * _ceil_to(k, 32) * _ceil_to(n, 16)
+            fma += _ceil_to(m, 64) * _ceil_to(k, 32) * _ceil_to(n, 32)
         if want_b and m and k and n:
             fma += _ceil_to(k, 64) * _ceil_to(n, 32) * _ceil_to(m, 32)
     flops = 2 * 3 * fma

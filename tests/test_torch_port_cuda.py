@@ -1574,6 +1574,42 @@ def test_cuda_backward_kernels_as_accurate_as_fp32(case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("seed", [17, 18])
+@pytest.mark.parametrize("case", ["flagship_layer0", "flagship_nhop"])
+def test_cuda_backward_kernels_within_twice_fp32(case, seed):
+    """The flagship's grouped calls as a train step makes them, held
+    against x64, the plain route in fp64 on the same operands: for each
+    group and gradient the kernels' max |x - x64| is at most twice the
+    plain route's in fp32 (cuBLAS, TF32 off) plus one fp32 ulp of max |x64|
+    (2^-23 of it). The kernels add each wgmma accumulator, which rounds
+    toward zero, into a sum rounded to nearest every few k8 steps, so no
+    chain of tensor-core accumulations grows with P or with the rows of a
+    range."""
+    _needs_card()
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        a, b, g, idx = _backward_operands(case, seed=seed)
+        n = len(a)
+        das, dbs = ss.support_score_backward(a, b, g, idx, [True] * n,
+                                             [True] * n)
+        for i in range(n):
+            plain = ss.support_score_backward_plain(a[i], b[i], g[i], idx[i])
+            exact = ss.support_score_backward_plain(
+                a[i].double(), b[i].double(), g[i].double(), idx[i])
+            for what, got, w, x in zip(("da", "db"), (das[i], dbs[i]),
+                                       plain, exact):
+                def err(y):
+                    return (y.double() - x).abs().max().item()
+
+                limit = 2 * err(w) + 2.0 ** -23 * x.abs().max().item()
+                assert err(got) <= limit, (case, seed, i, what, err(got),
+                                           err(w), limit)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", ["flagship_nhop", "flagship_layer0",
                                   "ragged"])
 def test_cuda_backward_kernels_one_gradient_a_group(case):

@@ -14,7 +14,10 @@ kernels are held against the plain version in
 """
 
 import functools
+import re
 import types
+from fractions import Fraction
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -357,11 +360,11 @@ def test_3xtf32_leaves_out_what_is_not_needed():
 @pytest.mark.parametrize(
     "shape,need_a,need_b,want",
     [
-        # da: 64 x 32 x 16 of M, K, N; db: 64 x 32 x 32 of K, N, M.
-        ((64, 32, 8, 1), True, False, 6 * 64 * 32 * 16),
+        # da: 64 x 32 x 32 of M, K, N; db: 64 x 32 x 32 of K, N, M.
+        ((64, 32, 8, 1), True, False, 6 * 64 * 32 * 32),
         ((64, 32, 8, 1), False, True, 6 * 64 * 32 * 64),
         ((65, 28, 10, 1), True, True,
-         6 * (128 * 32 * 16 + 64 * 32 * 96)),
+         6 * (128 * 32 * 32 + 64 * 32 * 96)),
         ((0, 28, 10, 1), True, True, 0),
     ],
 )
@@ -373,3 +376,242 @@ def test_backward_mma_flops(shape, need_a, need_b, want):
     assert work["flops"] == want
     assert work["ms"] == pytest.approx(want / 495e9)
     assert work["share"] == pytest.approx(work["ms"] / 2.0)
+
+
+# The tensor cores' rounding, emulated on the CPU by
+# ``support_score_backward_emulated``: every accumulation into a wgmma
+# accumulator rounds toward zero, and the kernels add the accumulator into
+# an fp32 sum rounded to nearest every few k8 steps (promotion).
+_BWD_SOURCE = (Path(ss.__file__).resolve().parent.parent / "csrc"
+               / "support_score_bwd.cu")
+
+
+def _source_constant(name):
+    """The value of ``constexpr int name = value;`` in the kernels' source."""
+    found = re.findall(rf"constexpr int {name} = (\d+);",
+                       _BWD_SOURCE.read_text())
+    assert len(found) == 1, name
+    return int(found[0])
+
+
+def test_emulated_intervals_are_the_kernels():
+    """The emulation's promotion intervals are the kernels' own: da every
+    kDaPromoteSteps k8 steps, db every kDbPromoteChunks chunks of kDbRows
+    rows (8 rows a step)."""
+    assert ss.DA_PROMOTE_STEPS == _source_constant("kDaPromoteSteps")
+    assert ss.DB_PROMOTE_STEPS == (_source_constant("kDbPromoteChunks")
+                                   * _source_constant("kDbRows") // 8)
+
+
+@pytest.mark.parametrize(
+    "x,zero,nearest",
+    [
+        (1 + 2.0**-30, 1.0, 1.0),
+        (1 - 2.0**-30, 1 - 2.0**-24, 1.0),
+        (-(1 - 2.0**-30), -(1 - 2.0**-24), -1.0),
+        (1 + 3 * 2.0**-25, 1.0, 1 + 2.0**-23),
+        (0.0, 0.0, 0.0),
+    ],
+)
+def test_round_fp32_toward_zero_and_to_nearest(x, zero, nearest):
+    """fp64 to fp32: toward zero (the tensor cores' accumulation) and to
+    nearest (an IEEE fp32 add)."""
+    t = torch.tensor([x], dtype=torch.float64)
+    assert ss._round_fp32(t, True).item() == zero
+    assert ss._round_fp32(t, False).item() == nearest
+
+
+def _toward_zero(x: Fraction) -> np.float32:
+    """The fp32 value nearest x in the direction of zero, exactly."""
+    c = np.float32(float(x))
+    if abs(Fraction(float(c))) > abs(x):
+        c = np.nextafter(c, np.float32(0))
+    return c
+
+
+def _literal_chain(steps, promote):
+    """One output's sum as the kernels take it, element by element in exact
+    arithmetic: ``steps`` lists each k8 step's three products as lists of
+    (x, y) pairs; each product's exact sum is added into the accumulator,
+    rounded toward zero; every ``promote`` steps (None: at the end) the
+    accumulator goes into an fp32 sum rounded to nearest."""
+    total, acc = np.float32(0), None
+    for t, products in enumerate(steps):
+        if promote is not None and t % promote == 0 and acc is not None:
+            total, acc = np.float32(total + acc), None
+        for pairs in products:
+            exact = sum((Fraction(float(x)) * Fraction(float(y))
+                         for x, y in pairs), Fraction(0))
+            acc = _toward_zero(exact + Fraction(float(acc or 0)))
+    return np.float32(total + acc) if acc is not None else total
+
+
+def _literal_backward(a, b, g, idx, promote, db_rows):
+    """``support_score_backward_emulated`` written out one output element
+    at a time (numpy, exact fractions), for small shapes."""
+    m, k = a.shape
+    p, _, l = b.shape
+    s = np.zeros((m, p, l), np.float32)
+    for i in range(m):
+        for j in range(l):
+            s[i, idx[i, j], j] = g[i, j]
+    a_hi, a_lo = (x.numpy() for x in ss.split_tf32(torch.from_numpy(a)))
+    b_hi, b_lo = (x.numpy() for x in ss.split_tf32(torch.from_numpy(b)))
+    s_hi, s_lo = (x.numpy() for x in ss.split_tf32(torch.from_numpy(s)))
+    order = [(n % p, n // p) for n in range(p * l)]  # n' = l P + p
+    da = np.zeros((m, k), np.float32)
+    for i in range(m):
+        for c in range(k):
+            steps = []
+            for n0 in range(0, p * l, 8):
+                cols = order[n0:n0 + 8]
+                steps.append([
+                    [(s_lo[i, q, j], b_hi[q, c, j]) for q, j in cols],
+                    [(s_hi[i, q, j], b_lo[q, c, j]) for q, j in cols],
+                    [(s_hi[i, q, j], b_hi[q, c, j]) for q, j in cols]])
+            da[i, c] = _literal_chain(steps, promote)
+    db = np.zeros((p, k, l), np.float32)
+    starts = range(0, m, db_rows)
+    for q in range(p):
+        for c in range(k):
+            for j in range(l):
+                parts = []
+                for r0 in starts:
+                    rows = range(r0, min(m, r0 + db_rows))
+                    steps = []
+                    for m0 in range(r0, r0 + db_rows, 8):
+                        rr = [r for r in range(m0, m0 + 8) if r in rows]
+                        steps.append([
+                            [(a_lo[r, c], s_hi[r, q, j]) for r in rr],
+                            [(a_hi[r, c], s_lo[r, q, j]) for r in rr],
+                            [(a_hi[r, c], s_hi[r, q, j]) for r in rr]])
+                    parts.append(_literal_chain(steps, promote))
+                sums = [np.float32(0)] * 8
+                for r, part in enumerate(parts):
+                    sums[r % 8] = np.float32(sums[r % 8] + part)
+                db[q, c, j] = ((sums[0] + sums[1]) + (sums[2] + sums[3])) + (
+                    (sums[4] + sums[5]) + (sums[6] + sums[7]))
+    return da, db
+
+
+@pytest.mark.parametrize("promote", [None, 1, 2])
+def test_emulation_matches_a_literal_loop(promote):
+    """The vectorised emulation, bit for bit, against the same arithmetic
+    written out one output element at a time in exact fractions: 37 rows in
+    ranges of 16 (3 ranges, the last ragged), P = 6 and L = 3 (3 steps of
+    n'), with the accumulator promoted every step, every 2 steps, or at the
+    end only (the order before promotion)."""
+    rng = np.random.default_rng(21)
+    m, k, l, p = 37, 5, 3, 6
+    a = rng.standard_normal((m, k)).astype(np.float32)
+    b = rng.standard_normal((p, k, l)).astype(np.float32)
+    g = rng.standard_normal((m, l)).astype(np.float32)
+    idx = rng.integers(0, p, (m, l), dtype=np.int32)
+    da, db = ss.support_score_backward_emulated(
+        *(torch.from_numpy(x) for x in (a, b, g, idx)),
+        da_promote=promote, db_promote=promote, db_rows=16)
+    want_a, want_b = _literal_backward(a, b, g, idx, promote, 16)
+    assert da.dtype == db.dtype == torch.float32
+    np.testing.assert_array_equal(da.numpy(), want_a)
+    np.testing.assert_array_equal(db.numpy(), want_b)
+
+
+def _unit_group(seed, shape):
+    """fp32 a and b unit vectors along k, g standard normal, idx uniform in
+    [0, P), as the card tests draw them."""
+    rng = np.random.default_rng(seed)
+    m, k, l, p = shape
+    a = rng.standard_normal((m, k))
+    b = rng.standard_normal((p, l, k))
+    a = a / np.linalg.norm(a, axis=1, keepdims=True)
+    b = (b / np.linalg.norm(b, axis=2, keepdims=True)).transpose(0, 2, 1)
+    g = rng.standard_normal((m, l))
+    idx = rng.integers(0, p, (m, l), dtype=np.int32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).float()
+                 if x.dtype != np.int32 else torch.from_numpy(x)
+                 for x in (a, b, g, idx))
+
+
+# (group, gradient): the flagship N-hop layer's degree-4 group with M cut
+# to 1000, and the P = 1 groups of layer 0 and of an N-hop layer at full
+# size; db in ranges of 32 kDbRangeChunks P rows.
+PROMOTION_CASES = {
+    "degree 4, da": ((1000, 440, 50, 12), "da"),
+    "degree 4, db": ((1000, 440, 50, 12), "db"),
+    "layer 0, P = 1, db": ((19232, 28, 10, 1), "db"),
+    "N-hop, P = 1, db": ((19232, 110, 10, 1), "db"),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _distances(case, toward_zero=True):
+    """max |x - x64| of one gradient: promoted at the kernels' intervals,
+    unpromoted, and the fp32 einsum (the plain route in fp32); x64 the
+    plain route in fp64."""
+    shape, what = PROMOTION_CASES[case]
+    a, b, g, idx = _unit_group(22, shape)
+    want = 0 if what == "da" else 1
+    need = dict(need_a=what == "da", need_b=what == "db")
+    exact = ss.support_score_backward_plain(
+        a.double(), b.double(), g.double(), idx, **need)[want]
+    rows = 32 * _source_constant("kDbRangeChunks") * shape[3]
+
+    def dist(x):
+        return (x.double() - exact).abs().max().item()
+
+    promoted = ss.support_score_backward_emulated(
+        a, b, g, idx, db_rows=rows, toward_zero=toward_zero, **need)[want]
+    unpromoted = ss.support_score_backward_emulated(
+        a, b, g, idx, da_promote=None, db_promote=None, db_rows=rows,
+        toward_zero=toward_zero, **need)[want]
+    fp32 = ss.support_score_backward_plain(a, b, g, idx, **need)[want]
+    return dist(promoted), dist(unpromoted), dist(fp32)
+
+
+@pytest.mark.parametrize("case", ["degree 4, da", "degree 4, db",
+                                  "layer 0, P = 1, db"])
+def test_promotion_brings_the_kernels_order_toward_fp64(case):
+    """With the tensor cores' rounding toward zero, the kernels' promoted
+    order stands at least 3x closer to fp64 than the unpromoted order,
+    whose chains of accumulations grow with P * L (da) and with the
+    rows of a range (db). (At the N-hop layer's P = 1 the promoted db is
+    about as far as the fp32 einsum, which the test below holds, and the
+    unpromoted one about 3x farther.)"""
+    promoted, unpromoted, _ = _distances(case)
+    assert 3 * promoted <= unpromoted, (promoted, unpromoted)
+
+
+@pytest.mark.parametrize("case", sorted(PROMOTION_CASES))
+def test_promoted_order_within_3x_of_fp32(case):
+    """The kernels' promoted order stands within 3x of the fp32 einsum's
+    distance from fp64."""
+    promoted, _, fp32 = _distances(case)
+    assert promoted <= 3 * fp32, (promoted, fp32)
+
+
+def test_rounding_to_nearest_would_need_no_promotion():
+    """The cause, isolated: had the accumulator rounded to nearest, the
+    unpromoted order would stand at least 3x closer to fp64 than it does
+    rounding toward zero (degree 4's db, ranges of 1,000 rows)."""
+    _, nearest, _ = _distances("degree 4, db", toward_zero=False)
+    _, toward_zero, _ = _distances("degree 4, db")
+    assert 3 * nearest <= toward_zero, (nearest, toward_zero)
+
+
+def test_interval_past_the_chain_is_the_unpromoted_order():
+    """A promotion interval at least the chain's length gives the unpromoted
+    order bit for bit: da's 75 steps (P = 12, L = 50) and db's ranges of 25
+    steps; at layer 0's P = 1, L = 10, da's two steps are never promoted at
+    the kernels' interval either."""
+    a, b, g, idx = _unit_group(23, (200, 44, 50, 12))
+    long = ss.support_score_backward_emulated(a, b, g, idx, da_promote=75,
+                                              db_promote=25)
+    none = ss.support_score_backward_emulated(a, b, g, idx, da_promote=None,
+                                              db_promote=None)
+    for x, y in zip(long, none):
+        assert torch.equal(x, y)
+    a, b, g, idx = _unit_group(24, (300, 28, 10, 1))
+    kernels = ss.support_score_backward_emulated(a, b, g, idx, need_b=False)
+    none = ss.support_score_backward_emulated(a, b, g, idx, need_b=False,
+                                              da_promote=None)
+    assert torch.equal(kernels[0], none[0])
