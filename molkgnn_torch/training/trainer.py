@@ -45,6 +45,14 @@ data-parallel paths):
     captured as a CUDA graph and replayed per block, one readback (the
     counterpart of the JAX package's scanned evaluation); the host-loader
     path evaluates eagerly, batch by batch;
+  * each epoch's history record splits its wall time by host spans
+    (``monitors.SpanRecorder``: the epoch, its train steps and each
+    replay's launch, the readback, validation's dispatch, readback and host
+    work; ``SPAN_KEYS``) and, on the card, times the epoch's last replayed
+    step and its four phases by five device marks that the capture
+    records as event nodes, and the stream's time of that replay
+    (``_epoch_record``); the spans open ``torch.profiler`` ranges while a
+    profiler runs;
   * best checkpoints per monitored metric plus ``last``, kept in memory and
     optionally written to ``checkpoint_dir``; ``test`` evaluates each and
     writes ``test_result.log`` and ``test_sample_scores_{tag}.log``;
@@ -117,7 +125,6 @@ import dataclasses
 import json
 import os
 import signal
-import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -188,6 +195,7 @@ from molkgnn_torch.training.checkpoint import (
 )
 from molkgnn_torch.training.metrics import compute_metrics
 from molkgnn_torch.training.model import LOSSES
+from molkgnn_torch.training.monitors import SpanRecorder
 from molkgnn_torch.training.optim import (
     clip_by_global_norm,
     fill_missing_grads,
@@ -211,6 +219,30 @@ SAMPLE_SALT = 0x5A17
 CAPS_MARGIN = 1.5
 # Evaluation splits whose partitions are kept (valid, test, train).
 EVAL_CACHE_MAX = 3
+# An epoch's history record: the summed seconds of the epoch's host spans
+# of each name (monitors.SpanRecorder), None where it had none.
+SPAN_KEYS = {
+    "epoch_time_s": "molkgnn.fit.epoch",
+    "train_dispatch_time_s": "molkgnn.fit.train",
+    "train_readback_time_s": "molkgnn.fit.readback",
+    "eval_time_s": "molkgnn.fit.eval",
+    "train_launch_time_s": "molkgnn.train.replay",
+    "eval_dispatch_time_s": "molkgnn.eval.dispatch",
+    "eval_readback_time_s": "molkgnn.eval.readback",
+    "eval_host_time_s": "molkgnn.eval.host",
+}
+# The train step's phases, between its five device marks (on the card):
+# its start, after the batch's gather, after the forward and loss, after
+# the backward, after the update (under a mesh the all-reduce falls in the
+# optimizer's phase).
+STEP_PHASES = ("gather", "forward", "backward", "optimizer")
+# The step's device times an epoch's history record takes from its last
+# replay (``_epoch_record``), in ms.
+STEP_KEYS = (("train_step_stream_ms", "train_step_device_ms")
+             + tuple(f"step_{p}_ms" for p in STEP_PHASES))
+# Every key an epoch's history record takes from its spans, replays and
+# marks: times of this run, not results of its training.
+TRACE_KEYS = tuple(SPAN_KEYS) + ("train_replays",) + STEP_KEYS
 
 
 @dataclasses.dataclass
@@ -317,6 +349,20 @@ class Trainer:
         self.best: Dict[str, float] = {}
         self.step_losses: List[float] = []
         self._ckpts: Dict[str, dict] = {}
+        # Host spans of the current epoch (reset at each epoch's start).
+        self.spans = SpanRecorder()
+        # On the card: the train step's five marks, which a capture records
+        # as event nodes run at every replay, and two plain events recorded
+        # in turn after each replay, which end the epoch holding the ends of
+        # its last two (``_epoch_record``). The epoch's replays so far.
+        self._marks = None
+        self._replay_marks = None
+        self._replays = 0
+        if self.device.type == "cuda":
+            self._marks = [torch.cuda.Event(enable_timing=True, external=True)
+                           for _ in range(len(STEP_PHASES) + 1)]
+            self._replay_marks = (torch.cuda.Event(enable_timing=True),
+                                  torch.cuda.Event(enable_timing=True))
 
         train_ids = np.asarray(dataset.split["train"])
         sched = dict(
@@ -480,6 +526,11 @@ class Trainer:
         pred, _ = self.model(batch)
         return self.loss_fn(pred, batch.y, batch.graph_mask)
 
+    def _mark(self, i: int) -> None:
+        """Record the train step's mark ``i`` on the stream (the card)."""
+        if self._marks is not None:
+            self._marks[i].record(torch.cuda.current_stream(self.device))
+
     def _update(self) -> None:
         """Apply one update from the gradients in place (see module doc),
         with no host readback."""
@@ -495,12 +546,15 @@ class Trainer:
         ranks, the gradients and statistics averaged first), left on the
         device."""
         loss = self._loss(batch)
+        self._mark(2)
         loss.backward()
+        self._mark(3)
         loss = loss.detach()
         if self._sync is not None:
             fill_missing_grads(self._params)
             loss = self._sync(loss)
         self._update()
+        self._mark(4)
         self.step += 1
         return loss
 
@@ -513,7 +567,8 @@ class Trainer:
     def _device_step(self) -> torch.Tensor:
         """One train step with no host input and no host readback: ids
         drawn on the device (device_sampling) or read from the static id
-        buffer. This is the step a CUDA graph captures."""
+        buffer. This is the step a CUDA graph captures, with its marks."""
+        self._mark(0)
         if self._sampler is not None:
             prob, alias, train_ids = self._sampler
             ids = sample_ids(self.sample_rng, prob, alias, train_ids,
@@ -521,10 +576,13 @@ class Trainer:
         else:
             ids = self._graph_ids
         if self._mp is not None:
-            return self._step(sampled_halo_batch(
+            batch = sampled_halo_batch(
                 self._device_data, ids, self._shard_spec, self._gather,
-                self._mp.n_model, self._mp.index))
-        return self._step(self._gather(self._device_data, ids, self.spec))
+                self._mp.n_model, self._mp.index)
+        else:
+            batch = self._gather(self._device_data, ids, self.spec)
+        self._mark(1)
+        return self._step(batch)
 
     def _capture(self) -> None:
         """Capture ``_device_step`` as a CUDA graph, with the Trainer's
@@ -576,7 +634,11 @@ class Trainer:
             return loss
         if self._graph is None:
             self._capture()
-        self._graph.replay()
+        with self.spans.span("molkgnn.train.replay"):
+            self._graph.replay()
+        self._replays += 1
+        self._replay_marks[self._replays % 2].record(
+            torch.cuda.current_stream(self.device))
         self.step += 1
         add_launches(self._graph_launches)
         return self._graph_loss.clone()
@@ -709,14 +771,18 @@ class Trainer:
         replays on the card); one copy of the ids to the device and one
         readback of the predictions, in the order of ``ids``."""
         ids = np.asarray(ids)
-        idm, posm = self._id_blocks(ids)
-        self.model.eval()
-        preds = self._blocks(self._device_data,
-                             torch.as_tensor(idm, device=self.device),
-                             mesh=self.mesh)
-        flat = preds.cpu().numpy().reshape(-1)
-        true = np.array([self.dataset.graphs[i].y for i in ids], np.float32)
-        return true, self._in_order(flat, posm, len(ids))
+        with self.spans.span("molkgnn.eval.dispatch"):
+            idm, posm = self._id_blocks(ids)
+            self.model.eval()
+            preds = self._blocks(self._device_data,
+                                 torch.as_tensor(idm, device=self.device),
+                                 mesh=self.mesh)
+        with self.spans.span("molkgnn.eval.readback"):
+            flat = preds.cpu().numpy().reshape(-1)
+        with self.spans.span("molkgnn.eval.host"):
+            true = np.array([self.dataset.graphs[i].y for i in ids],
+                            np.float32)
+            return true, self._in_order(flat, posm, len(ids))
 
     @torch.no_grad()
     def _predict(self, graphs):
@@ -786,15 +852,16 @@ class Trainer:
 
     def evaluate(self, part: str = "valid") -> Dict[str, float]:
         true_y, pred_y = self._predictions(part)
-        results = compute_metrics(self.dataset.metrics, true_y, pred_y)
-        pred = torch.from_numpy(pred_y)
-        results["loss"] = float(
-            self.loss_fn(
-                pred,
-                torch.from_numpy(true_y),
-                torch.ones(pred.shape, dtype=torch.bool),
+        with self.spans.span("molkgnn.eval.host"):
+            results = compute_metrics(self.dataset.metrics, true_y, pred_y)
+            pred = torch.from_numpy(pred_y)
+            results["loss"] = float(
+                self.loss_fn(
+                    pred,
+                    torch.from_numpy(true_y),
+                    torch.ones(pred.shape, dtype=torch.bool),
+                )
             )
-        )
         return results
 
     # ------------------------------------------------------------------
@@ -856,44 +923,31 @@ class Trainer:
                 # Model parallelism: every rank draws the whole batches.
                 shard=(0, 1) if self._mp else (self.rank, self.world),
             )
+        span = self.spans.span
         for epoch in range(start_epoch, cfg.max_epochs):
-            t0 = time.time()
-            if loader is None:
-                losses = self._epoch_steps()
-            elif self._mp is not None:
-                losses = self._mp_epoch(loader)
-            else:
-                losses = [self._step(b.to(self.device))
-                          for b in prefetch_to_device(loader)]
-            if not losses:
-                raise RuntimeError("fit(): the epoch had no train step")
-            t_dispatch = time.time()
-            # The epoch's one readback.
-            step_losses = torch.stack(losses).cpu()
-            train_loss = float(step_losses.mean())
-            self.step_losses.extend(step_losses.tolist())
-            t_readback = time.time()
-
-            results = self.evaluate("valid")
-            if cfg.record_valid_pred:
-                true_y, pred_y = self._predictions("valid")
-            if cfg.record_valid_pred and writer:
-                pred_dir = os.path.join(cfg.log_dir, "valid_predictions")
-                os.makedirs(pred_dir, exist_ok=True)
-                with open(os.path.join(pred_dir, f"epoch_{epoch}"), "w") as f:
-                    for pv, tv in zip(pred_y, true_y):
-                        f.write(f"{pv},{tv}\n")
-            if cfg.train_metric:
-                for k, v in self.evaluate("train").items():
-                    results[f"{k}_no_dropout"] = v
+            self.spans.reset(epoch)
+            self._replays = 0
+            with span("molkgnn.fit.epoch"):
+                with span("molkgnn.fit.train"):
+                    if loader is None:
+                        losses = self._epoch_steps()
+                    elif self._mp is not None:
+                        losses = self._mp_epoch(loader)
+                    else:
+                        losses = [self._step(b.to(self.device))
+                                  for b in prefetch_to_device(loader)]
+                if not losses:
+                    raise RuntimeError("fit(): the epoch had no train step")
+                # The epoch's one readback.
+                with span("molkgnn.fit.readback"):
+                    step_losses = torch.stack(losses).cpu()
+                    train_loss = float(step_losses.mean())
+                    self.step_losses.extend(step_losses.tolist())
+                with span("molkgnn.fit.eval"):
+                    results = self._validate(epoch, writer)
             results["train_loss"] = train_loss
             results["epoch"] = epoch
-            results["epoch_time_s"] = time.time() - t0
-            # Wall-time split: launching the epoch's steps, the loss
-            # readback that waits for them, and evaluation.
-            results["train_dispatch_time_s"] = t_dispatch - t0
-            results["train_readback_time_s"] = t_readback - t_dispatch
-            results["eval_time_s"] = time.time() - t_readback
+            results.update(self._epoch_record())
             self.history.append(results)
             if self.monitor is not None and writer:
                 self.monitor.on_epoch_end(epoch, results)
@@ -925,6 +979,54 @@ class Trainer:
             with open(os.path.join(cfg.log_dir, "history.json"), "w") as f:
                 json.dump(self.history, f, indent=1)
         return self.history
+
+    def _validate(self, epoch: int, writer: bool) -> Dict[str, float]:
+        """The epoch's validation results (with ``train_metric``, the train
+        split's in eval mode too); with ``record_valid_pred`` the writer
+        also writes the predictions."""
+        cfg = self.config
+        results = self.evaluate("valid")
+        if cfg.record_valid_pred:
+            true_y, pred_y = self._predictions("valid")
+        if cfg.record_valid_pred and writer:
+            pred_dir = os.path.join(cfg.log_dir, "valid_predictions")
+            os.makedirs(pred_dir, exist_ok=True)
+            with open(os.path.join(pred_dir, f"epoch_{epoch}"), "w") as f:
+                for pv, tv in zip(pred_y, true_y):
+                    f.write(f"{pv},{tv}\n")
+        if cfg.train_metric:
+            for k, v in self.evaluate("train").items():
+                results[f"{k}_no_dropout"] = v
+        return results
+
+    def _epoch_record(self) -> Dict[str, Optional[float]]:
+        """The epoch's times for its history record: the wall-time split
+        by its spans (``SPAN_KEYS``: the epoch; launching its steps, the
+        loss readback that waits for them, and validation; the host's time
+        inside ``CUDAGraph.replay()``; validation's dispatch, readback and
+        host work) and its replays. Then, on the card, of its last replay:
+        the step's device time by its marks (``train_step_device_ms``, D),
+        its phases (``step_<phase>_ms``), and the stream's time from the
+        end of the replay before to its end (``train_step_stream_ms``, T;
+        two replays or more), so that T - D is the device's wait before it.
+        Read after the readback, so every mark has run; None where a value
+        does not exist (the CPU, eager steps)."""
+        totals = self.spans.totals()
+        out = {key: totals[name][1] if name in totals else None
+               for key, name in SPAN_KEYS.items()}
+        n = self._replays
+        out["train_replays"] = n
+        out.update(dict.fromkeys(STEP_KEYS))
+        if n:  # replays run on the card only
+            m = self._marks
+            out["train_step_device_ms"] = m[0].elapsed_time(m[-1])
+            for p, a, b in zip(STEP_PHASES, m, m[1:]):
+                out[f"step_{p}_ms"] = a.elapsed_time(b)
+            if n > 1:
+                ends = self._replay_marks
+                out["train_step_stream_ms"] = ends[(n - 1) % 2].elapsed_time(
+                    ends[n % 2])
+        return out
 
     # ------------------------------------------------------------------
     def _update_checkpoints(self, results: Dict[str, float]):

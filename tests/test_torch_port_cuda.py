@@ -335,6 +335,28 @@ def test_cuda_graphed_steps_equal_eager_steps(tmp_path, device_sampling):
 
 
 @pytest.mark.cuda
+def test_cuda_replayed_fit_times_its_step_by_marks(tmp_path):
+    """Two epochs of 8 steps through the captured graph (the first: 2
+    eager warm-up steps, then 6 replays): the marks the graph replays give
+    the last replay's device time and four positive phases that sum to it
+    within 10%; the stream's time of that replay is no shorter; the host's
+    launch lies within the epoch's train dispatch."""
+    _needs_card()
+    t = _small_run(tmp_path, "marks", scan_steps=8, device_sampling=True,
+                   max_epochs=2)
+    t.fit()
+    assert [r["train_replays"] for r in t.history] == [6, 8]
+    for r in t.history:
+        device = r["train_step_device_ms"]
+        phases = [r[f"step_{p}_ms"] for p in ("gather", "forward",
+                                              "backward", "optimizer")]
+        assert device > 0 and all(p > 0 for p in phases)
+        assert abs(sum(phases) - device) <= 0.1 * device
+        assert r["train_step_stream_ms"] >= device
+        assert 0 < r["train_launch_time_s"] <= r["train_dispatch_time_s"]
+
+
+@pytest.mark.cuda
 def test_cuda_sample_ids_follow_the_weights():
     _needs_card()
     from molkgnn_torch.data.dataset import oversampling_weights

@@ -46,6 +46,7 @@ from molkgnn_torch.parallel.data_parallel import make_mesh
 from molkgnn_torch.training.model import GNNModel as TModel
 from molkgnn_torch.training.model import bce_with_logits_loss
 from molkgnn_torch.training.optim import fill_missing_grads, make_optimizer
+from molkgnn_torch.training.trainer import TRACE_KEYS
 from molkgnn_torch.training.trainer import TrainConfig as TConfig
 from molkgnn_torch.training.trainer import Trainer as TTrainer
 
@@ -131,7 +132,7 @@ def _first_ids(tt):
 
 
 def _history(tt):
-    return [{k: v for k, v in h.items() if not k.endswith("_s")}
+    return [{k: v for k, v in h.items() if k not in TRACE_KEYS}
             for h in tt.history]
 
 

@@ -44,6 +44,7 @@ from molkgnn_torch.parallel import launch, multihost
 from molkgnn_torch.parallel.data_parallel import make_mesh, rank_rows
 from molkgnn_torch.serving.predictor import Predictor
 from molkgnn_torch.training.model import GNNModel as TModel
+from molkgnn_torch.training.trainer import TRACE_KEYS
 from molkgnn_torch.training.trainer import TrainConfig as TConfig
 from molkgnn_torch.training.trainer import Trainer as TTrainer
 
@@ -155,7 +156,7 @@ def _ranks(out):
     tt = _trainer(weights["kgnn"], mesh, log_dir=os.path.join(out, "fit"))
     history = tt.fit()
     save("fit", {"history": [{k: v for k, v in h.items()
-                              if not k.endswith("_s")} for h in history],
+                              if k not in TRACE_KEYS} for h in history],
                  "step": tt.step, "state": _state(tt)})
 
     # (4) screening at world 2, two slabs with ragged block counts

@@ -279,39 +279,48 @@ def test_sweep_runs_the_port_cli_and_resumes(tmp_path):
 
 # ---------------------------------------------------------------- monitors
 def test_monitor_sinks_write_the_jax_records(tmp_path, capsys):
+    """The port's JSONL and stdout sinks write what the JAX package's
+    write, for records with the nulls a Trainer's history holds."""
     records = [
-        (0, {"loss": 0.5, "AUC": 0.25, "epoch_time_s": 2.0, "n": 3}),
+        (0, {"loss": 0.5, "AUC": 0.25, "epoch_time_s": 2.0, "n": 3,
+             "train_step_device_ms": None}),
         (1, {"loss": float("nan"), "AUC": np.float32(0.75),
-             "epoch_time_s": 0.0}),
+             "epoch_time_s": 0.0, "train_step_device_ms": None}),
     ]
     written = {}
     for name, mod in (("t", t_mon), ("j", j_mon)):
         path = str(tmp_path / name / "m.jsonl")
-        monitor = mod.MetricMonitor([mod.throughput_sink(1000),
-                                     mod.jsonl_sink(path), mod.stdout_sink])
+        monitor = mod.MetricMonitor([mod.jsonl_sink(path), mod.stdout_sink])
         for epoch, metrics in records:
             monitor.on_epoch_end(epoch, dict(metrics))
         with open(path) as f:
             written[name] = (f.read(), monitor.history, capsys.readouterr())
     assert written["t"][0] == written["j"][0]
-    assert json.loads(written["t"][0].splitlines()[0])["edges_per_s"] == 500
+    first = json.loads(written["t"][0].splitlines()[0])
+    assert first == {"epoch": 0, **records[0][1]}
     assert str(written["t"][1]) == str(written["j"][1])
     assert written["t"][2].out == written["j"][2].out
+    assert written["t"][2].out.count("[monitor]") == 2
     assert t_mon.MetricMonitor().sinks == []
 
 
 def test_monitor_in_trainer_and_stopwatch(tmp_path):
     """A Trainer calls its monitor once an epoch with the epoch's
-    results."""
+    results, its span times among them, and its sinks get the record."""
     trainer = _small_trainer(tmp_path)
-    trainer.monitor = t_mon.MetricMonitor()
+    path = str(tmp_path / "monitor" / "m.jsonl")
+    trainer.monitor = t_mon.MetricMonitor([t_mon.jsonl_sink(path)])
     trainer.config.max_epochs = 2
     trainer.fit()
     assert [r["epoch"] for r in trainer.monitor.history] == [0, 1]
     assert trainer.monitor.history[1]["train_loss"] == \
         trainer.history[1]["train_loss"]
-    watch = t_mon.Stopwatch()
-    assert watch.elapsed() >= 0 and watch.formatted().endswith("s")
+    with open(path) as f:
+        lines = [json.loads(line) for line in f]
+    assert [r["epoch"] for r in lines] == [0, 1]
+    assert lines[1]["eval_host_time_s"] == \
+        trainer.history[1]["eval_host_time_s"] > 0
+    assert lines[1]["train_step_device_ms"] is None
 
 
 def test_profiler_trace_writes_a_cpu_trace(tmp_path):

@@ -43,6 +43,7 @@ from molkgnn_torch.training.checkpoint import from_jax_variables
 from molkgnn_torch.training.model import LOSSES as T_LOSSES
 from molkgnn_torch.training.model import GNNModel as TModel
 from molkgnn_torch.training.schedule import polynomial_warmup_decay as t_sched
+from molkgnn_torch.training.trainer import TRACE_KEYS
 from molkgnn_torch.training.trainer import TrainConfig as TConfig
 from molkgnn_torch.training.trainer import Trainer as TTrainer
 from molkgnn_tpu.data.dataset import Dataset as JDataset
@@ -483,9 +484,9 @@ def test_fit_and_test_match_jax(data, jax_run, tmp_path, use_kernel):
     tested = tt.test()
     assert len(history) == len(jax_run["history"]) == KW["max_epochs"]
     for got, want in zip(history, jax_run["history"]):
-        assert set(got) == set(want)
+        assert set(got) == set(want) | set(TRACE_KEYS)
         for k, w in want.items():
-            if not k.endswith("time_s"):
+            if k not in TRACE_KEYS:
                 np.testing.assert_allclose(got[k], w, err_msg=k, **R64)
     _assert_state_matches(tt, jax_run["final"], **R64)
     assert tested.keys() == jax_run["test"].keys()
