@@ -413,7 +413,7 @@ def runs(tmp_path_factory):
         args=(WORLD, launch.free_port(), "cpu", "gloo", _ranks, (str(out),)),
         nprocs=WORLD, join=False, start_method="spawn")
     jax_out = _jax_references()
-    deadline = time.monotonic() + 300
+    deadline = time.monotonic() + 120
     while not ctx.join(timeout=2):
         if time.monotonic() > deadline:
             for p in ctx.processes:

@@ -425,7 +425,7 @@ def runs(tmp_path_factory):
         nprocs=2, join=False, start_method="spawn")
     jax_out = next(refs)
     refs.close()
-    deadline = time.monotonic() + 300
+    deadline = time.monotonic() + 120
     while not ctx.join(timeout=5):
         if time.monotonic() > deadline:
             for p in ctx.processes:
